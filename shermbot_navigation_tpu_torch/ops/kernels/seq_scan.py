@@ -1,0 +1,237 @@
+"""The deferred tick's whole measurement scan, known association (port of
+``shermbot_navigation_tpu.ops.pallas.seq_scan``, ``known=True``).
+
+For each of the tick's M measurements, in order: the known slot id (an id
+outside [0, N) is a full no-op), the Kalman update of ``mean_r``,
+``cov_rr``, ``mm2``, ``rm6`` and ``diag4`` against a grid column
+reconstructed from the frozen grid plus the tick's earlier ops, or the
+analytic landmark init; and the op-history outputs ``Kb``, ``HSb``,
+``CRb`` (M, 4, N), ``gb`` and ``kindb`` (M,) that the grid pass consumes.
+
+On the card the scan is ``csrc/seq_scan.cu``: it replaces the TPU kernel
+``deferred_seq_scan`` (``ops/pallas/seq_scan.py``). It is bound by latency
+(a serial chain of M small updates on one robot), and runs as one
+persistent 1024-thread CTA that loops over the measurements with the
+strips in L2. It reads grid column g as row g of the comp-swapped frozen
+plane (symmetric Sigma, PARITY D13) and uses libm-accurate
+``atan2f``/``sinf``/``cosf``. :func:`reference_seq_scan` is the plain
+version: a twin of the XLA scan body of the JAX ``_make_sharded_deferred``
+at map=1, which reads exact grid columns.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import require, wants_kernel
+from ._build import check, library, stream_handle
+from ...models.ekf_slam import _inv2x2
+from ...ops import se2
+from ...parallel.blocked_ekf import _h5_coeffs
+
+MAX_MEAS = 64   # the CUDA kernel's shared-memory op history
+
+
+def _col_at(mm0p, Kb, HSb, CRb, gb, kb, j, g, g1, lane):
+    """Grid column g (comps (4, N)) after the tick's ops 0..j-1: the frozen
+    column, minus earlier rank-2 updates, with earlier init overwrites."""
+    col = mm0p.index_select(2, g1)[:, :, 0]            # col[c][n] = mm0p[c, n, g]
+    hs_g = HSb.index_select(2, g1)[:, :, 0]            # (M, 4)
+    cr_g = CRb.index_select(2, g1)[:, :, 0]
+    for i in range(j):
+        is_upd = kb[i] == 1
+        is_init = kb[i] == 2
+        s_i = gb[i]
+        k, h = Kb[i], hs_g[i]
+        corr = torch.stack([k[0] * h[0] + k[1] * h[1], k[0] * h[2] + k[1] * h[3],
+                            k[2] * h[0] + k[3] * h[1], k[2] * h[2] + k[3] * h[3]])
+        col = torch.where(is_upd, col - corr, col)
+        # init at s_i == g: the whole column is the cross strip, comp
+        # (p, q) of the column being comp (q, p) of the stored strip
+        col = torch.where(is_init & (s_i == g), CRb[i][[0, 2, 1, 3]], col)
+        # init at another slot: row s_i of this column <- strip column g
+        hit_row = (lane == s_i)[None, :]
+        col = torch.where(is_init & (s_i != g) & hit_row, cr_g[i][:, None],
+                          col)
+    return col
+
+
+def reference_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
+                       zs, valid, ids, R, *, wrap_innovation: bool = False,
+                       symmetrize: bool = True):
+    """Plain PyTorch scan (f32 or f64). Arguments and returns as
+    :func:`deferred_seq_scan`; every selection is a ``torch.where``, as in
+    the XLA body, so no value goes back to the host."""
+    M = zs.shape[0]
+    N = mm2.shape[1]
+    dtype, dev = mm2.dtype, mm2.device
+    lane = torch.arange(N, device=dev)
+    Kb = torch.zeros((M, 4, N), dtype=dtype, device=dev)
+    HSb = torch.zeros_like(Kb)
+    CRb = torch.zeros_like(Kb)
+    gb = torch.zeros(M, dtype=torch.int32, device=dev)
+    kb = torch.zeros(M, dtype=torch.int32, device=dev)
+    for j in range(M):
+        z = zs[j]
+        g = ids[j].long()
+        v = valid[j] & (g >= 0) & (g < N)
+        g1 = g.clamp(0, N - 1).reshape(1)
+        seen_g = seen.index_select(0, g1)[0]
+        is_new = v & ~seen_g
+        do_update = v & seen_g
+
+        # ---- measurement geometry off the sequential means ----
+        mj = mm2.index_select(1, g1)[:, 0]
+        H5, z_hat = _h5_coeffs(mean_r, mj)
+        dz = z - z_hat
+        if wrap_innovation:
+            dz = torch.stack([dz[0], se2.normalize_angle(dz[1])])
+
+        # ---- UPDATE branch ----
+        rm_j = rm6.index_select(1, g1)[:, 0].reshape(3, 2)
+        SHt_r = torch.cat([cov_rr, rm_j], dim=1) @ H5.T             # (3, 2)
+        col4 = _col_at(mm0p, Kb, HSb, CRb, gb, kb, j, g, g1, lane)
+        s4 = torch.stack([
+            rm6[0 + p] * H5[q, 0] + rm6[2 + p] * H5[q, 1]
+            + rm6[4 + p] * H5[q, 2]
+            + col4[p * 2 + 0] * H5[q, 3] + col4[p * 2 + 1] * H5[q, 4]
+            for p in range(2) for q in range(2)])                   # (4, N)
+        SHt_j = s4.index_select(1, g1)[:, 0].reshape(2, 2)
+        psi = H5 @ torch.cat([SHt_r, SHt_j], dim=0) + R
+        psi_inv = _inv2x2(psi)
+        K_r = SHt_r @ psi_inv
+        k4 = torch.stack([
+            s4[p * 2 + 0] * psi_inv[0, r] + s4[p * 2 + 1] * psi_inv[1, r]
+            for p in range(2) for r in range(2)])
+        upd_mean_r = mean_r + K_r @ dz
+        upd_mean_r = torch.cat([se2.normalize_angle(upd_mean_r[:1]),
+                                upd_mean_r[1:]])
+        upd_mm2 = mm2 + torch.stack([k4[0] * dz[0] + k4[1] * dz[1],
+                                     k4[2] * dz[0] + k4[3] * dz[1]])
+        upd_cov_rr = cov_rr - K_r @ SHt_r.T
+        if symmetrize:
+            upd_cov_rr = 0.5 * (upd_cov_rr + upd_cov_rr.T)
+        upd_rm6 = rm6 - torch.stack([
+            K_r[i, 0] * s4[p * 2 + 0] + K_r[i, 1] * s4[p * 2 + 1]
+            for i in range(3) for p in range(2)])
+
+        # ---- INIT branch: strips only; grid writes buffered ----
+        th, x, y = mean_r[0], mean_r[1], mean_r[2]
+        a = z[1] + th
+        r_ = z[0]
+        sa, ca = torch.sin(a), torch.cos(a)
+        m_new = torch.stack([x + r_ * ca, y + r_ * sa])
+        one, zero = torch.ones_like(r_), torch.zeros_like(r_)
+        Gx = torch.stack([torch.stack([-r_ * sa, one, zero]),
+                          torch.stack([r_ * ca, zero, one])])
+        Gz = torch.stack([torch.stack([ca, -r_ * sa]),
+                          torch.stack([sa, r_ * ca])])
+        cross4 = torch.stack([
+            Gx[p, 0] * rm6[0 + q] + Gx[p, 1] * rm6[2 + q]
+            + Gx[p, 2] * rm6[4 + q]
+            for p in range(2) for q in range(2)])                   # (4, N)
+        B_own = (Gx @ cov_rr) @ Gx.T + (Gz @ R) @ Gz.T
+        hit = (lane == g)[None, :]
+        cross4 = torch.where(hit, B_own.reshape(4, 1), cross4)
+        cross_r = (Gx @ cov_rr).T
+        ini_mm2 = torch.where(hit, m_new[:, None], mm2)
+        ini_rm6 = torch.where(hit, cross_r.reshape(6, 1), rm6)
+        seen_upd = seen | hit[0]
+
+        # ---- select sequential state ----
+        diag_upd = diag4 - torch.stack([
+            k4[p * 2 + 0] * s4[r * 2 + 0] + k4[p * 2 + 1] * s4[r * 2 + 1]
+            for p in range(2) for r in range(2)])
+        mean_r = torch.where(do_update, upd_mean_r, mean_r)
+        mm2 = torch.where(do_update, upd_mm2,
+                          torch.where(is_new, ini_mm2, mm2))
+        cov_rr = torch.where(do_update, upd_cov_rr, cov_rr)
+        rm6 = torch.where(do_update, upd_rm6,
+                          torch.where(is_new, ini_rm6, rm6))
+        n_seen = n_seen + is_new.to(n_seen.dtype)
+        seen = torch.where(is_new, seen_upd, seen)
+        diag4 = torch.where(do_update, diag_upd, diag4)
+        diag4 = torch.where(is_new & hit, B_own.reshape(4, 1), diag4)
+
+        # ---- record the op ----
+        kind = torch.where(do_update, 1, torch.where(is_new, 2, 0)
+                           ).to(torch.int32)
+        Kb[j] = torch.where(do_update, k4, torch.zeros_like(k4))
+        HSb[j] = torch.where(do_update, s4, torch.zeros_like(s4))
+        CRb[j] = torch.where(is_new, cross4, torch.zeros_like(cross4))
+        gb[j] = torch.where(kind > 0, g, -1)
+        kb[j] = kind
+    return (mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, Kb, HSb, CRb,
+            gb, kb)
+
+
+def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
+                      zs, valid, ids, R, *, wrap_innovation: bool = False,
+                      symmetrize: bool = True,
+                      use_kernel: bool | None = None):
+    """Run the tick's measurement scan (single robot, comp layouts).
+
+    Args: mean_r (3,), mm2 (2, N), cov_rr (3, 3), rm6 (6, N), diag4 (4, N),
+    seen (N,) bool, n_seen () int32, mm0p (4, N, N) -- the frozen
+    post-predict grid planes as carried in ``BlockedState``, zs (M, 2),
+    valid (M,) bool, ids (M,) int32, R (2, 2).
+
+    Returns (mean_r', mm2', cov_rr', rm6', diag4', seen', n_seen',
+    Kb (M, 4, N), HSb (M, 4, N), CRb (M, 4, N), gb (M,), kindb (M,)).
+
+    ``use_kernel`` follows the package rule (``ops/kernels/__init__.py``):
+    auto launches the CUDA kernel for CUDA operands (f32 only; anything
+    else raises) and the plain version on the CPU.
+    ``deferred_seq_scan.launches`` counts kernel launches.
+    """
+    name = "seq_scan"
+    if not wants_kernel(mm2, use_kernel, name):
+        return reference_seq_scan(
+            mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p, zs, valid,
+            ids, R, wrap_innovation=wrap_innovation, symmetrize=symmetrize)
+    N = mm2.shape[1]
+    M = zs.shape[0]
+    dev = mm2.device
+    require(1 <= M <= MAX_MEAS, name, f"1 <= M <= {MAX_MEAS}, got M={M}")
+    f32, i32 = torch.float32, torch.int32
+    spec = {"mean_r": (mean_r, (3,), f32), "mm2": (mm2, (2, N), f32),
+            "cov_rr": (cov_rr, (3, 3), f32), "rm6": (rm6, (6, N), f32),
+            "diag4": (diag4, (4, N), f32), "seen": (seen, (N,), torch.bool),
+            "n_seen": (n_seen, (), i32), "mm0p": (mm0p, (4, N, N), f32),
+            "zs": (zs, (M, 2), f32), "valid": (valid, (M,), torch.bool),
+            "ids": (ids, (M,), i32), "R": (R, (2, 2), f32)}
+    ops = {}
+    for key, (t, shape, dtype) in spec.items():
+        require(tuple(t.shape) == shape and t.dtype == dtype
+                and t.device == dev, name,
+                f"{key} must be {dtype} {shape} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+        ops[key] = t.contiguous()
+    outs = (torch.empty(3, dtype=f32, device=dev),          # mean_r
+            torch.empty(2, N, dtype=f32, device=dev),       # mm2
+            torch.empty(3, 3, dtype=f32, device=dev),       # cov_rr
+            torch.empty(6, N, dtype=f32, device=dev),       # rm6
+            torch.empty(4, N, dtype=f32, device=dev),       # diag4
+            torch.empty(N, dtype=torch.bool, device=dev),   # seen
+            torch.empty((), dtype=i32, device=dev),         # n_seen
+            torch.empty(M, 4, N, dtype=f32, device=dev),    # Kb
+            torch.empty(M, 4, N, dtype=f32, device=dev),    # HSb
+            torch.empty(M, 4, N, dtype=f32, device=dev),    # CRb
+            torch.empty(M, dtype=i32, device=dev),          # gb
+            torch.empty(M, dtype=i32, device=dev))          # kindb
+    mr_o, mm2_o, crr_o, rm6_o, dg_o, seen_o, ns_o, Kb, HSb, CRb, gb, kb = outs
+    ptr = {k: t.data_ptr() for k, t in ops.items()}
+    code = library().seq_scan_known(
+        ptr["mean_r"], ptr["cov_rr"], ptr["n_seen"], ptr["mm2"], ptr["rm6"],
+        ptr["diag4"], ptr["seen"], ptr["mm0p"], ptr["zs"], ptr["valid"],
+        ptr["ids"], ptr["R"], mr_o.data_ptr(), crr_o.data_ptr(),
+        ns_o.data_ptr(), mm2_o.data_ptr(), rm6_o.data_ptr(), dg_o.data_ptr(),
+        seen_o.data_ptr(), Kb.data_ptr(), HSb.data_ptr(), CRb.data_ptr(),
+        gb.data_ptr(), kb.data_ptr(), N, M, int(bool(wrap_innovation)),
+        int(bool(symmetrize)), stream_handle(dev))
+    check(name, code)
+    deferred_seq_scan.launches += 1
+    return outs
+
+
+deferred_seq_scan.launches = 0
