@@ -1,7 +1,8 @@
-// Deferred blocked-EKF measurement scan, known association, for sm_90a.
+// Deferred blocked-EKF measurement scan, known or unknown association,
+// for sm_90a.
 //
 // Replaces the TPU kernel shermbot_navigation_tpu/ops/pallas/seq_scan.py
-// (deferred_seq_scan, known=True): the whole M-measurement scan of one
+// (deferred_seq_scan, both branches): the whole M-measurement scan of one
 // tick of the deferred blocked step at map=1, batch=1.
 //
 // What bounds it on an H100: latency, not bandwidth or arithmetic. The M
@@ -25,6 +26,15 @@
 //     D13), with no DMA block alignment to handle;
 //   * atan2f / sinf / cosf replace the degree-9 polynomial atan2 (PARITY
 //     D14); build without --use_fast_math so they stay accurate.
+// Unknown association (known == 0) adds one lane pass per measurement
+// before the slot choice: every thread scores its seen lanes with the
+// Mahalanobis distance (psi = H5 S5 H5^T + R from mm2, rm6 and the carried
+// diag4, the w-chain of the JAX _associate_comp), keeps its first lane
+// under new_gate, and a warp-shuffle then shared-memory min-reduction
+// finds the first such lane of the map, carrying its distance. Thread 0
+// takes the match / skip / new / overflow decision from it; an overflow
+// sets the sticky `stopped`, after which the tick's measurements are
+// inert. The known branch's phases then run unchanged.
 // Strips and op buffers live in global memory (L2-resident); the kernel
 // first copies each input strip lane to its output and then works on the
 // outputs in place. A later multi-CTA design is needed for N >= 8192.
@@ -36,6 +46,8 @@ namespace {
 
 constexpr int kMaxMeas = 64;
 constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kNoHit = 0x7fffffff;
 
 struct Params {
   const float* mean_r;    // (3,)
@@ -48,7 +60,7 @@ struct Params {
   const float* mm0p;      // (4, N, N) frozen post-predict grid planes
   const float* zs;        // (M, 2)
   const uint8_t* valid;   // (M,) bool
-  const int* ids;         // (M,)
+  const int* ids;         // (M,) known association only (else unused)
   const float* R;         // (2, 2)
   float* mean_r_o;
   float* cov_rr_o;
@@ -66,6 +78,9 @@ struct Params {
   int m;
   int wrap_innovation;
   int symmetrize;
+  int known;
+  float match_gate;
+  float new_gate;
 };
 
 // Scalars shared by the whole CTA. kind: 0 none / 1 update / 2 init.
@@ -90,6 +105,9 @@ struct Shared {
   float bown[4];
   float mnew[2];
   float cross_r[6];
+  int stopped;              // unknown association: overflow stops the tick
+  int red_idx[kWarps];      // per-warp first lane under new_gate
+  float red_dist[kWarps];   // and its distance
 };
 
 __device__ __forceinline__ float norm_angle(float a) {
@@ -115,22 +133,119 @@ __device__ void load_phase(const Params& p, Shared& s, int tid, int nt) {
     for (int i = 0; i < 2; ++i)
       for (int k = 0; k < 2; ++k) s.R[i][k] = p.R[i * 2 + k];
     s.n_seen = p.n_seen[0];
+    s.stopped = 0;
   }
 }
 
-// Thread 0: slot choice, geometry, and the scalars of whichever branch
-// this measurement takes.
+// Mahalanobis distance of measurement (z0, z1) to seen lane n (the
+// componentwise psi of _associate_comp; no determinant floor, as there).
+__device__ float lane_distance(const Params& p, const Shared& s, int n,
+                               float z0, float z1) {
+  const int N = p.n;
+  const float dx = p.mm2_o[n] - s.x;
+  const float dy = p.mm2_o[N + n] - s.y;
+  const float d = fmaxf(dx * dx + dy * dy, 1e-12f);
+  const float sq = sqrtf(d);
+  const float a = dx / sq, b = dy / sq, c = dy / d, e = -dx / d;
+  const float w[2][5] = {{0.0f, -a, -b, a, b}, {-1.0f, c, e, -c, -e}};
+  float rm[6], dg[4];
+  for (int k = 0; k < 6; ++k) rm[k] = p.rm6_o[k * N + n];
+  for (int k = 0; k < 4; ++k) dg[k] = p.diag4_o[k * N + n];
+  float psi[2][2];
+  for (int l = 0; l < 2; ++l) {
+    const float* wl = w[l];
+    float u[5];
+    for (int k = 0; k < 3; ++k)
+      u[k] = s.crr[k][0] * wl[0] + s.crr[k][1] * wl[1] + s.crr[k][2] * wl[2] +
+             rm[k * 2 + 0] * wl[3] + rm[k * 2 + 1] * wl[4];
+    for (int q = 0; q < 2; ++q)
+      u[3 + q] = rm[0 + q] * wl[0] + rm[2 + q] * wl[1] + rm[4 + q] * wl[2] +
+                 dg[q * 2 + 0] * wl[3] + dg[q * 2 + 1] * wl[4];
+    for (int q = 0; q < 2; ++q) {
+      const float* wp = w[q];
+      psi[q][l] = (wp[0] * u[0] + wp[1] * u[1] + wp[2] * u[2] +
+                   wp[3] * u[3] + wp[4] * u[4]) + s.R[q][l];
+    }
+  }
+  const float det = psi[0][0] * psi[1][1] - psi[0][1] * psi[1][0];
+  const float dz0 = z0 - sq;
+  float dz1 = z1 - norm_angle(atan2f(dy, dx) - s.th);
+  if (p.wrap_innovation) dz1 = norm_angle(dz1);
+  return (dz0 * (psi[1][1] * dz0 - psi[0][1] * dz1) +
+          dz1 * (-psi[1][0] * dz0 + psi[0][0] * dz1)) / det;
+}
+
+// All threads (unknown association, active measurement): each thread's
+// first seen lane with distance < new_gate, then the warp's first, into
+// shared memory (red_idx = kNoHit where none).
+__device__ void assoc_lane_phase(const Params& p, Shared& s, int j, int tid,
+                                 int nt) {
+  const float z0 = p.zs[j * 2 + 0], z1 = p.zs[j * 2 + 1];
+  int best = kNoHit;
+  float best_d = 0.0f;
+  for (int n = tid; n < p.n; n += nt) {
+    if (!p.seen_o[n]) continue;
+    const float dist = lane_distance(p, s, n, z0, z1);
+    if (dist < p.new_gate) {   // lanes rise, so the first hit is the least
+      best = n;
+      best_d = dist;
+      break;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const int oi = __shfl_down_sync(0xffffffffu, best, off);
+    const float od = __shfl_down_sync(0xffffffffu, best_d, off);
+    if (oi < best) {
+      best = oi;
+      best_d = od;
+    }
+  }
+  if ((tid & 31) == 0) {
+    s.red_idx[tid >> 5] = best;
+    s.red_dist[tid >> 5] = best_d;
+  }
+}
+
+// Thread 0: the unknown-association decision (blocked_ekf.py:756-772) from
+// the warps' first hits. Sets s.g and s.kind; overflow sets s.stopped.
+__device__ void assoc_decide(const Params& p, Shared& s, bool act, int nw) {
+  const int N = p.n;
+  int first = kNoHit;
+  float d_first = 0.0f;
+  if (act)
+    for (int w = 0; w < nw; ++w)
+      if (s.red_idx[w] < first) {
+        first = s.red_idx[w];
+        d_first = s.red_dist[w];
+      }
+  const bool any_hit = first < kNoHit;
+  const bool no_seen = s.n_seen == 0;
+  const bool cap_full = s.n_seen >= N;
+  const bool is_match = act && !no_seen && any_hit && d_first < p.match_gate;
+  const bool want_new = act && (no_seen || !any_hit);
+  const int new_slot = s.n_seen < N - 1 ? s.n_seen : N - 1;
+  s.g = is_match ? first : new_slot;
+  s.kind = is_match ? 1 : (want_new && !cap_full ? 2 : 0);
+  if (want_new && cap_full) s.stopped = 1;
+}
+
+// Thread 0: slot choice (known ids here; unknown association decided by
+// assoc_decide before), geometry, and the scalars of whichever branch this
+// measurement takes.
 __device__ void scalar_phase_a(const Params& p, Shared& s, int j) {
   const int N = p.n;
-  const int id = p.ids[j];
-  // out-of-range id -> full no-op (no phantom n_seen bump), the rule of
-  // the XLA scan and the TPU kernel
-  const bool in_range = id >= 0 && id < N;
-  const bool v = p.valid[j] != 0 && in_range;
-  const int g = id < 0 ? 0 : (id >= N ? N - 1 : id);
-  s.g = g;
-  s.kind = !v ? 0 : (p.seen_o[g] != 0 ? 1 : 2);
+  if (p.known) {
+    const int id = p.ids[j];
+    // out-of-range id -> full no-op (no phantom n_seen bump), the rule of
+    // the XLA scan and the TPU kernel
+    const bool in_range = id >= 0 && id < N;
+    const bool v = p.valid[j] != 0 && in_range;
+    const int g = id < 0 ? 0 : (id >= N ? N - 1 : id);
+    s.g = g;
+    s.kind = !v ? 0 : (p.seen_o[g] != 0 ? 1 : 2);
+  }
   if (s.kind == 0) return;
+  const int g = s.g;
 
   const float th = s.th, x = s.x, y = s.y;
   const float z0 = p.zs[j * 2 + 0], z1 = p.zs[j * 2 + 1];
@@ -364,13 +479,20 @@ __device__ void store_phase(const Params& p, const Shared& s) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-seq_scan_known_kernel(Params p) {
+seq_scan_kernel(Params p) {
   __shared__ Shared s;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   load_phase(p, s, tid, nt);
   __syncthreads();
   for (int j = 0; j < p.m; ++j) {
+    if (!p.known) {
+      // uniform across the block: s.stopped changed before the last sync
+      const bool act = p.valid[j] != 0 && !s.stopped;
+      if (act) assoc_lane_phase(p, s, j, tid, nt);
+      __syncthreads();
+      if (tid == 0) assoc_decide(p, s, act, nt >> 5);
+    }
     if (tid == 0) scalar_phase_a(p, s, j);
     __syncthreads();
     if (s.kind == 1) lane_phase_b1(p, s, j, tid, nt);
@@ -385,16 +507,19 @@ seq_scan_known_kernel(Params p) {
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int seq_scan_known(
+// Returns cudaGetLastError() after the launch (0 = launched). `ids` may be
+// null when known == 0.
+extern "C" int seq_scan(
     const void* mean_r, const void* cov_rr, const void* n_seen,
     const void* mm2, const void* rm6, const void* diag4, const void* seen,
     const void* mm0p, const void* zs, const void* valid, const void* ids,
     const void* R, void* mean_r_o, void* cov_rr_o, void* n_seen_o,
     void* mm2_o, void* rm6_o, void* diag4_o, void* seen_o, void* Kb,
     void* HSb, void* CRb, void* gb, void* kindb, int n, int m,
-    int wrap_innovation, int symmetrize, void* stream) {
-  if (n <= 0 || m <= 0 || m > kMaxMeas) return (int)cudaErrorInvalidValue;
+    int wrap_innovation, int symmetrize, int known, float match_gate,
+    float new_gate, void* stream) {
+  if (n <= 0 || m <= 0 || m > kMaxMeas || (known && ids == nullptr))
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.mean_r = (const float*)mean_r;
   p.cov_rr = (const float*)cov_rr;
@@ -424,6 +549,9 @@ extern "C" int seq_scan_known(
   p.m = m;
   p.wrap_innovation = wrap_innovation;
   p.symmetrize = symmetrize;
-  seq_scan_known_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(p);
+  p.known = known;
+  p.match_gate = match_gate;
+  p.new_gate = new_gate;
+  seq_scan_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

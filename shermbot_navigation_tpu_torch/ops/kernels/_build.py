@@ -1,11 +1,13 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources are ``csrc/*.cu`` of this package, each with a plain C entry
-point. They are compiled together, at first use and without network, by
-``nvcc`` for ``sm_90a`` into one shared library under the package's
+point. At first use, without network, each source is compiled by its own
+``nvcc`` for ``sm_90a`` into a shared library under the package's
 ``_build/`` directory (listed in ``.gitignore``), keyed by a hash of the
-sources and flags, and loaded with ``ctypes``. Nothing is built when the
-package is imported, so the CPU tests import every module without ``nvcc``.
+source and the flags; the ``nvcc`` processes run together, so the build
+takes as long as the slowest source. The libraries are loaded with
+``ctypes``. Nothing is built when the package is imported, so the CPU tests
+import every module without ``nvcc``.
 
 Every pointer and the stream travel as ``ctypes.c_void_p``; each C entry
 returns ``cudaGetLastError()`` after its launch and :func:`check` raises on
@@ -22,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -35,10 +38,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the entry points: name -> argtypes (restype is int).
+_F = ctypes.c_float
+# C entry points: name -> (source stem in csrc/, argtypes); restype is int.
 SIGNATURES = {
-    "grid_update": [_P] * 7 + [_I] * 3 + [_P],
-    "seq_scan_known": [_P] * 24 + [_I] * 4 + [_P],
+    "grid_update": ("grid_update", [_P] * 7 + [_I] * 3 + [_P]),
+    "seq_scan": ("seq_scan", [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P]),
+    "cov_update": ("cov_update", [_P] * 8 + [_I] + [_P]),
 }
 
 
@@ -53,48 +58,60 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def _key(sources) -> str:
+def _key(src: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 @functools.cache
 def build() -> dict:
-    """Compile (if this source hash is not built yet) and load the kernel
-    library. Returns ``{"lib", "path", "seconds", "ptxas"}``; ``seconds``
-    is 0 and ``ptxas`` empty when the library was already on disk."""
-    sources = _sources()
-    path = BUILD_DIR / f"libshermbot_kernels_{_key(sources)}.so"
-    seconds, ptxas = 0.0, ""
-    if not path.exists():
+    """Compile the sources not built yet (one ``nvcc`` each, all at once)
+    and load every kernel library. Returns ``{"lib", "paths", "seconds",
+    "ptxas"}``: ``lib`` has one attribute per C entry point, ``seconds``
+    is the wall time of the parallel build (0 and empty ``ptxas`` when all
+    were on disk)."""
+    stems = sorted({stem for stem, _ in SIGNATURES.values()})
+    paths = {s: BUILD_DIR / f"lib{s}_{_key(CSRC / f'{s}.cu')}.so"
+             for s in stems}
+    todo = [s for s in stems if not paths[s].exists()]
+    seconds, ptxas = 0.0, []
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = {}
+        for s in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{s}.cu")]
+            procs[s] = (tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        failed = []
+        for s, (tmp, cmd, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}\n{err}")
+                continue
+            ptxas.append(err)
+            os.replace(tmp, paths[s])
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        ptxas = proc.stderr
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    libs = {s: ctypes.CDLL(str(p)) for s, p in paths.items()}
+    entries = {}
+    for name, (stem, argtypes) in SIGNATURES.items():
+        fn = getattr(libs[stem], name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return {"lib": lib, "path": str(path), "seconds": seconds,
-            "ptxas": ptxas}
+        entries[name] = fn
+    return {"lib": types.SimpleNamespace(**entries),
+            "paths": [str(p) for p in paths.values()], "seconds": seconds,
+            "ptxas": "".join(ptxas)}
 
 
 def library():

@@ -1,22 +1,27 @@
-"""The deferred tick's whole measurement scan, known association (port of
-``shermbot_navigation_tpu.ops.pallas.seq_scan``, ``known=True``).
+"""The deferred tick's whole measurement scan, known or unknown association
+(port of ``shermbot_navigation_tpu.ops.pallas.seq_scan``).
 
-For each of the tick's M measurements, in order: the known slot id (an id
-outside [0, N) is a full no-op), the Kalman update of ``mean_r``,
-``cov_rr``, ``mm2``, ``rm6`` and ``diag4`` against a grid column
-reconstructed from the frozen grid plus the tick's earlier ops, or the
-analytic landmark init; and the op-history outputs ``Kb``, ``HSb``,
-``CRb`` (M, 4, N), ``gb`` and ``kindb`` (M,) that the grid pass consumes.
+For each of the tick's M measurements, in order: the slot -- the known id
+(an id outside [0, N) is a full no-op) or, with unknown association, the
+reference's first-hit Mahalanobis gates against the carried own-block
+diagonal (match, skip, new, or overflow, which stops the rest of the
+tick); the Kalman update of ``mean_r``, ``cov_rr``, ``mm2``, ``rm6`` and
+``diag4`` against a grid column reconstructed from the frozen grid plus
+the tick's earlier ops, or the analytic landmark init; and the op-history
+outputs ``Kb``, ``HSb``, ``CRb`` (M, 4, N), ``gb`` and ``kindb`` (M,)
+that the grid pass consumes.
 
 On the card the scan is ``csrc/seq_scan.cu``: it replaces the TPU kernel
 ``deferred_seq_scan`` (``ops/pallas/seq_scan.py``). It is bound by latency
 (a serial chain of M small updates on one robot), and runs as one
 persistent 1024-thread CTA that loops over the measurements with the
-strips in L2. It reads grid column g as row g of the comp-swapped frozen
-plane (symmetric Sigma, PARITY D13) and uses libm-accurate
-``atan2f``/``sinf``/``cosf``. :func:`reference_seq_scan` is the plain
-version: a twin of the XLA scan body of the JAX ``_make_sharded_deferred``
-at map=1, which reads exact grid columns.
+strips in L2; with unknown association each measurement first scores
+every seen lane and reduces to the first gate hit across the CTA. It reads
+grid column g as row g of the comp-swapped frozen plane (symmetric Sigma,
+PARITY D13) and uses libm-accurate ``atan2f``/``sinf``/``cosf``.
+:func:`reference_seq_scan` is the plain version: a twin of the XLA scan
+body of the JAX ``_make_sharded_deferred`` at map=1, which reads exact
+grid columns.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from . import require, wants_kernel
 from ._build import check, library, stream_handle
 from ...models.ekf_slam import _inv2x2
 from ...ops import se2
-from ...parallel.blocked_ekf import _h5_coeffs
+from ...parallel.blocked_ekf import _associate_comp, _h5_coeffs
 
 MAX_MEAS = 64   # the CUDA kernel's shared-memory op history
 
@@ -56,12 +61,31 @@ def _col_at(mm0p, Kb, HSb, CRb, gb, kb, j, g, g1, lane):
     return col
 
 
+def _gate_margin(dist, any_hit, d_first, match_gate, new_gate):
+    """Smallest relative distance of this measurement's scores to a gate:
+    every finite lane distance to ``new_gate`` and, on a hit, the first
+    hit's distance to ``match_gate``. A rounding difference can flip a
+    decision only where this is near 0."""
+    finite = torch.isfinite(dist)
+    to_new = torch.where(finite, (dist - new_gate).abs() / new_gate,
+                         torch.full_like(dist, float("inf"))).amin()
+    to_match = torch.where(any_hit, (d_first - match_gate).abs() / match_gate,
+                           torch.full_like(d_first, float("inf")))
+    return torch.minimum(to_new, to_match)
+
+
 def reference_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
-                       zs, valid, ids, R, *, wrap_innovation: bool = False,
-                       symmetrize: bool = True):
+                       zs, valid, ids, R, *, known: bool = True,
+                       match_gate: float = 0.01, new_gate: float = 60.0,
+                       wrap_innovation: bool = False,
+                       symmetrize: bool = True, gate_margins=None):
     """Plain PyTorch scan (f32 or f64). Arguments and returns as
     :func:`deferred_seq_scan`; every selection is a ``torch.where``, as in
-    the XLA body, so no value goes back to the host."""
+    the XLA body, so no value goes back to the host.
+
+    ``gate_margins`` (a list, unknown association only) receives one 0-dim
+    tensor per measurement: its smallest relative margin to either gate
+    (:func:`_gate_margin`; inf for an inert measurement)."""
     M = zs.shape[0]
     N = mm2.shape[1]
     dtype, dev = mm2.dtype, mm2.device
@@ -71,14 +95,38 @@ def reference_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
     CRb = torch.zeros_like(Kb)
     gb = torch.zeros(M, dtype=torch.int32, device=dev)
     kb = torch.zeros(M, dtype=torch.int32, device=dev)
+    stopped = torch.zeros((), dtype=torch.bool, device=dev)
     for j in range(M):
         z = zs[j]
-        g = ids[j].long()
-        v = valid[j] & (g >= 0) & (g < N)
-        g1 = g.clamp(0, N - 1).reshape(1)
-        seen_g = seen.index_select(0, g1)[0]
-        is_new = v & ~seen_g
-        do_update = v & seen_g
+        if known:
+            g = ids[j].long()
+            v = valid[j] & (g >= 0) & (g < N)
+            g1 = g.clamp(0, N - 1).reshape(1)
+            seen_g = seen.index_select(0, g1)[0]
+            is_new = v & ~seen_g
+            do_update = v & seen_g
+        else:
+            # reference first-hit gating against the carried diag4
+            # (blocked_ekf.py:756-772 of the JAX package)
+            act = valid[j] & ~stopped
+            any_hit, first, d_first, dist = _associate_comp(
+                mean_r, mm2, cov_rr, rm6, seen, z, R, diag4,
+                new_gate=new_gate, wrap_innovation=wrap_innovation)
+            no_seen = n_seen == 0
+            cap_full = n_seen >= N
+            is_match = act & ~no_seen & any_hit & (d_first < match_gate)
+            want_new = act & (no_seen | ~any_hit)
+            is_new = want_new & ~cap_full
+            stopped = stopped | (want_new & cap_full)
+            do_update = is_match
+            g = torch.where(is_match, first,
+                            torch.clamp_max(n_seen, N - 1).long())
+            g1 = g.reshape(1)
+            if gate_margins is not None:
+                gate_margins.append(torch.where(
+                    act, _gate_margin(dist, any_hit, d_first, match_gate,
+                                      new_gate),
+                    torch.full_like(d_first, float("inf"))))
 
         # ---- measurement geometry off the sequential means ----
         mj = mm2.index_select(1, g1)[:, 0]
@@ -166,15 +214,19 @@ def reference_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
 
 
 def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
-                      zs, valid, ids, R, *, wrap_innovation: bool = False,
+                      zs, valid, ids, R, *, known: bool = True,
+                      match_gate: float = 0.01, new_gate: float = 60.0,
+                      wrap_innovation: bool = False,
                       symmetrize: bool = True,
-                      use_kernel: bool | None = None):
+                      use_kernel: bool | None = None, gate_margins=None):
     """Run the tick's measurement scan (single robot, comp layouts).
 
     Args: mean_r (3,), mm2 (2, N), cov_rr (3, 3), rm6 (6, N), diag4 (4, N),
     seen (N,) bool, n_seen () int32, mm0p (4, N, N) -- the frozen
     post-predict grid planes as carried in ``BlockedState``, zs (M, 2),
-    valid (M,) bool, ids (M,) int32, R (2, 2).
+    valid (M,) bool, ids (M,) int32 (known association; may be ``None``
+    when ``known=False``), R (2, 2). ``match_gate`` / ``new_gate`` are the
+    first-hit gates of unknown association.
 
     Returns (mean_r', mm2', cov_rr', rm6', diag4', seen', n_seen',
     Kb (M, 4, N), HSb (M, 4, N), CRb (M, 4, N), gb (M,), kindb (M,)).
@@ -183,12 +235,17 @@ def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
     auto launches the CUDA kernel for CUDA operands (f32 only; anything
     else raises) and the plain version on the CPU.
     ``deferred_seq_scan.launches`` counts kernel launches.
+    ``gate_margins`` is :func:`reference_seq_scan`'s (plain version only).
     """
     name = "seq_scan"
     if not wants_kernel(mm2, use_kernel, name):
         return reference_seq_scan(
             mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p, zs, valid,
-            ids, R, wrap_innovation=wrap_innovation, symmetrize=symmetrize)
+            ids, R, known=known, match_gate=match_gate, new_gate=new_gate,
+            wrap_innovation=wrap_innovation, symmetrize=symmetrize,
+            gate_margins=gate_margins)
+    require(gate_margins is None, name, "gate_margins needs the plain "
+            "version")
     N = mm2.shape[1]
     M = zs.shape[0]
     dev = mm2.device
@@ -199,7 +256,9 @@ def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
             "diag4": (diag4, (4, N), f32), "seen": (seen, (N,), torch.bool),
             "n_seen": (n_seen, (), i32), "mm0p": (mm0p, (4, N, N), f32),
             "zs": (zs, (M, 2), f32), "valid": (valid, (M,), torch.bool),
-            "ids": (ids, (M,), i32), "R": (R, (2, 2), f32)}
+            "R": (R, (2, 2), f32)}
+    if known:
+        spec["ids"] = (ids, (M,), i32)
     ops = {}
     for key, (t, shape, dtype) in spec.items():
         require(tuple(t.shape) == shape and t.dtype == dtype
@@ -221,14 +280,15 @@ def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
             torch.empty(M, dtype=i32, device=dev))          # kindb
     mr_o, mm2_o, crr_o, rm6_o, dg_o, seen_o, ns_o, Kb, HSb, CRb, gb, kb = outs
     ptr = {k: t.data_ptr() for k, t in ops.items()}
-    code = library().seq_scan_known(
+    code = library().seq_scan(
         ptr["mean_r"], ptr["cov_rr"], ptr["n_seen"], ptr["mm2"], ptr["rm6"],
         ptr["diag4"], ptr["seen"], ptr["mm0p"], ptr["zs"], ptr["valid"],
-        ptr["ids"], ptr["R"], mr_o.data_ptr(), crr_o.data_ptr(),
+        ptr.get("ids"), ptr["R"], mr_o.data_ptr(), crr_o.data_ptr(),
         ns_o.data_ptr(), mm2_o.data_ptr(), rm6_o.data_ptr(), dg_o.data_ptr(),
         seen_o.data_ptr(), Kb.data_ptr(), HSb.data_ptr(), CRb.data_ptr(),
         gb.data_ptr(), kb.data_ptr(), N, M, int(bool(wrap_innovation)),
-        int(bool(symmetrize)), stream_handle(dev))
+        int(bool(symmetrize)), int(bool(known)), float(match_gate),
+        float(new_gate), stream_handle(dev))
     check(name, code)
     deferred_seq_scan.launches += 1
     return outs

@@ -2,10 +2,12 @@
 ``shermbot_navigation_tpu.parallel.bigmap``).
 
 One robot drives a constant-twist arc over a grid of N landmarks; each tick
-it observes M landmarks by known id from a schedule that sweeps the whole
-map (every landmark is initialized in the first ceil(N/M) ticks and only
-updated after that). Ground truth is the closed-form arc, and each tick's
-measurements are generated on the state's device from it.
+it observes M landmarks from a schedule that sweeps the whole map (with
+known ids every landmark is initialized in the first ceil(N/M) ticks and
+only updated after that). Ground truth is the closed-form arc, and each
+tick's measurements are generated on the state's device from it.
+:func:`make_runner` associates by id; :func:`make_unknown_runner` drops
+the ids and associates by the reference's Mahalanobis first-hit gates.
 
 The kernels route as in ``ops/kernels``: the CUDA kernels for a state on
 the card, the plain versions for a state on the CPU.
@@ -91,6 +93,28 @@ def make_runner(cfg: EKFConfig, M: int, device,
         for t in range(t0, t0 + ticks):
             zs, ids, tw = measurements(wl, t)
             state = step(state, tw[None], zs[None], valid, ids[None], Q, R)
+        return state
+
+    return run
+
+
+def make_unknown_runner(cfg: EKFConfig, M: int, device,
+                        seq_kernel: bool | None = None,
+                        grid_kernel: bool | None = None, gate_margins=None):
+    """Like :func:`make_runner` with UNKNOWN association: the same
+    measurements without their ids, each gated by the first-hit
+    Mahalanobis scan of the deferred unknown tick (``gate_margins`` as in
+    ``blocked_ekf.make_deferred_step``)."""
+    step = blocked_ekf.make_deferred_step(cfg, M, device, known=False,
+                                          seq_kernel=seq_kernel,
+                                          grid_kernel=grid_kernel,
+                                          gate_margins=gate_margins)
+    valid = torch.ones((1, M), dtype=torch.bool, device=device)
+
+    def run(state, wl: BigMapWorkload, Q, R, t0: int, ticks: int):
+        for t in range(t0, t0 + ticks):
+            zs, _, tw = measurements(wl, t)
+            state = step(state, tw[None], zs[None], valid, Q, R)
         return state
 
     return run

@@ -12,8 +12,10 @@ The deferred tick reads and writes the O(N^2) grid once per tick: predict
 touches only strips; the M-measurement scan (``ops/kernels/seq_scan``)
 works on O(N) strips and buffers each op; one fused pass
 (``ops/kernels/grid_update``) then replays the buffered init overwrites
-and subtracts the combined rank-2M term. With one map shard the JAX
-version's ``psum``/``all_gather`` are identities and are dropped here.
+and subtracts the combined rank-2M term. Association is known (ids) or
+unknown (first-hit Mahalanobis gates, :func:`_associate_comp`). With one
+map shard the JAX version's ``pmin``/``psum``/``all_gather`` are
+identities and are dropped here.
 """
 
 from __future__ import annotations
@@ -103,6 +105,69 @@ def _h5_coeffs(mean_r, mj):
     return H5, z_hat
 
 
+def _associate_comp(mean_r, mm2, cov_rr, rm6, seen, z, R, diag4, *,
+                    new_gate: float, wrap_innovation: bool):
+    """First-hit Mahalanobis association on component strips (the JAX
+    ``_associate_comp`` at map=1): psi = H5 S5 H5^T + R per landmark from
+    ``cov_rr``, the strip ``rm6`` and the carried own-block diagonal
+    ``diag4`` (comps [p*2+q][n]), without a determinant floor, as there.
+
+    Returns ``(any_hit, first, d_first, dist)``: whether a seen slot scores
+    below ``new_gate``, the first such slot (0 if none), its distance (0 if
+    none; inf and NaN read as 0) and every slot's distance (inf unseen).
+    """
+    N = mm2.shape[1]
+    dx = mm2[0] - mean_r[1]
+    dy = mm2[1] - mean_r[2]
+    d = torch.clamp_min(dx * dx + dy * dy, 1e-12)
+    sq = torch.sqrt(d)
+    a = dx / sq
+    b = dy / sq
+    c = dy / d
+    e = -dx / d
+    zero = torch.zeros_like(dx)
+    one = torch.ones_like(dx)
+    w = ((zero, -a, -b, a, b), (-one, c, e, -c, -e))
+    psi = [[None, None], [None, None]]
+    for l in range(2):
+        wl = w[l]
+        u = []
+        for k in range(3):
+            u.append(cov_rr[k, 0] * wl[0] + cov_rr[k, 1] * wl[1]
+                     + cov_rr[k, 2] * wl[2]
+                     + rm6[k * 2 + 0] * wl[3] + rm6[k * 2 + 1] * wl[4])
+        for p in range(2):
+            u.append(rm6[0 * 2 + p] * wl[0] + rm6[1 * 2 + p] * wl[1]
+                     + rm6[2 * 2 + p] * wl[2]
+                     + diag4[p * 2 + 0] * wl[3] + diag4[p * 2 + 1] * wl[4])
+        for p in range(2):
+            wp = w[p]
+            psi[p][l] = (wp[0] * u[0] + wp[1] * u[1] + wp[2] * u[2]
+                         + wp[3] * u[3] + wp[4] * u[4]) + R[p, l]
+    p00, p01, p10, p11 = psi[0][0], psi[0][1], psi[1][0], psi[1][1]
+    det = p00 * p11 - p01 * p10
+
+    z_hat1 = se2.normalize_angle(torch.atan2(dy, dx) - mean_r[0])
+    dz0 = z[0] - sq
+    dz1 = z[1] - z_hat1
+    if wrap_innovation:
+        dz1 = se2.normalize_angle(dz1)
+    dist = (dz0 * (p11 * dz0 - p01 * dz1)
+            + dz1 * (-p10 * dz0 + p00 * dz1)) / det
+    dist = torch.where(seen, dist, torch.full_like(dist, float("inf")))
+
+    lane = torch.arange(N, device=mm2.device)
+    first = torch.where(dist < new_gate, lane, N).min()
+    any_hit = first < N
+    first = torch.where(any_hit, first, 0)
+    d_first = torch.where(
+        any_hit,
+        torch.nan_to_num(dist.index_select(0, first.reshape(1))[0], nan=0.0,
+                         posinf=0.0),
+        torch.zeros_like(dz0[0]))
+    return any_hit, first, d_first, dist
+
+
 class _SeqComp(NamedTuple):
     """The measurement scan's carried state in component layout (strips
     as (k, N) rows, landmark axis minor)."""
@@ -145,16 +210,23 @@ def grid_operands(Kb, HSb, CRb, gb, kb):
 
 
 def make_deferred_step(config: EKFConfig, max_meas: int, device,
+                       known: bool = True,
                        seq_kernel: bool | None = None,
-                       grid_kernel: bool | None = None):
-    """Build the known-association deferred tick for one robot.
+                       grid_kernel: bool | None = None, gate_margins=None):
+    """Build the deferred tick for one robot, known or unknown association.
 
     Returns ``step(state, twist (1, 3), zs (1, M, 2), valid (1, M),
-    ids (1, M), Q, R) -> state`` on a batch-1 :class:`BlockedState` that
-    lives on ``device``. ``seq_kernel`` / ``grid_kernel`` route the two
-    kernels as in ``ops/kernels``: ``None`` runs the CUDA kernel on the
-    card and the plain version on the CPU; ``False`` forces the plain
-    version; ``True`` demands the kernel.
+    ids (1, M), Q, R) -> state`` (``known=True``) or ``step(state, twist,
+    zs, valid, Q, R)`` (``known=False``: the reference's first-hit gates,
+    ``config.match_gate`` / ``new_gate``; slots fill in order; a
+    measurement that finds the map full stops the rest of the tick) on a
+    batch-1 :class:`BlockedState` that lives on ``device``.
+    ``seq_kernel`` / ``grid_kernel`` route the two kernels as in
+    ``ops/kernels``: ``None`` runs the CUDA kernel on the card and the
+    plain version on the CPU; ``False`` forces the plain version; ``True``
+    demands the kernel. ``gate_margins`` (a list; unknown association on
+    the plain scan) collects each measurement's smallest relative margin
+    to a gate (``seq_scan.reference_seq_scan``).
 
     The grid pass updates ``state.cov_mm``'s storage IN PLACE (the JAX
     version donates the buffer instead); the returned state shares it.
@@ -166,8 +238,8 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
     N = config.num_landmarks
     M = max_meas
 
-    def step(state: BlockedState, twist, zs, valid, ids, Q, R
-             ) -> BlockedState:
+    def step(state: BlockedState, twist, zs, valid, *rest) -> BlockedState:
+        ids, Q, R = rest if known else (None, *rest)
         if state.mean_r.shape[0] != 1:
             raise ValueError(f"the deferred step runs batch 1, got batch "
                              f"{state.mean_r.shape[0]}")
@@ -188,9 +260,12 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
         (mr_o, mm2_o, crr_o, rm6_o, diag_o, seen_o, ns_o,
          Kb, HSb, CRb, gb, kb) = deferred_seq_scan(
             s0.mean_r, s0.mm2, s0.cov_rr, s0.rm6, st1.diag4, s0.seen,
-            s0.n_seen, cov_mm0.reshape(4, N, N), zs[0], valid[0], ids[0],
-            R, wrap_innovation=config.wrap_innovation,
-            symmetrize=config.symmetrize, use_kernel=seq_kernel)
+            s0.n_seen, cov_mm0.reshape(4, N, N), zs[0], valid[0],
+            ids[0] if known else None, R, known=known,
+            match_gate=config.match_gate, new_gate=config.new_gate,
+            wrap_innovation=config.wrap_innovation,
+            symmetrize=config.symmetrize, use_kernel=seq_kernel,
+            gate_margins=gate_margins)
         s_out = _SeqComp(mean_r=mr_o, mm2=mm2_o, cov_rr=crr_o, rm6=rm6_o,
                          n_seen=ns_o, seen=seen_o)
         A, Bm, crow, ccol, rowT, colT = grid_operands(Kb, HSb, CRb, gb, kb)

@@ -1,5 +1,6 @@
 """Single-robot serving at large map sizes (port of
-``shermbot_navigation_tpu.pipeline.serving``, known association).
+``shermbot_navigation_tpu.pipeline.serving``), known or unknown
+association.
 
 A serving tick is the deferred blocked tick at map=1, batch=1
 (``parallel/blocked_ekf.make_deferred_step``): the whole measurement scan
@@ -19,12 +20,6 @@ import torch
 
 from ..models.ekf_slam import EKFConfig, EKFState
 from ..parallel import blocked_ekf
-
-_UNKNOWN = ("unknown-association serving is not ported yet: it needs the "
-            "seq_scan kernel's unknown branch with "
-            "make_sharded_deferred_unknown_step and _associate_comp "
-            "(ROADMAP queue 2, item 2)")
-
 
 def state_from_dense(config: EKFConfig, st: EKFState
                      ) -> blocked_ekf.BlockedState:
@@ -77,32 +72,34 @@ def make_serving_step(config: EKFConfig, max_meas: int, known: bool = True,
     """Build the single-robot serving tick on ``device``.
 
     Returns ``tick(state, twist (3,), zs (M, 2), valid (M,), ids (M,),
-    Q, R) -> state``. The kernels route as in ``ops/kernels`` (``None`` =
+    Q, R) -> state`` for ``known=True``, and ``tick(state, twist, zs,
+    valid, Q, R)`` for ``known=False`` (the reference's Mahalanobis
+    first-hit gating). The kernels route as in ``ops/kernels`` (``None`` =
     the CUDA kernels on the card, the plain versions on the CPU).
     ``donate=True`` lets the tick update the input state's grid in place
     (serving states are linear chains); ``donate=False`` copies it first.
     ``dtype`` is the state's dtype (the kernels take f32 only).
     """
-    if not known:
-        raise NotImplementedError(_UNKNOWN)
     step = blocked_ekf.make_deferred_step(config, max_meas, device,
-                                          seq_kernel=seq_kernel,
+                                          known=known, seq_kernel=seq_kernel,
                                           grid_kernel=grid_kernel)
 
-    def tick(state, twist, zs, valid, ids, Q, R):
+    def tick(state, twist, zs, valid, *rest):
         if state.cov_mm.dtype != dtype:
             raise ValueError(f"state dtype {state.cov_mm.dtype}, tick built "
                              f"for {dtype}")
         if not donate:
             state = state._replace(cov_mm=state.cov_mm.clone())
-        return step(state, twist[None], zs[None], valid[None], ids[None],
-                    Q, R)
+        ids = (rest[0][None],) if known else ()
+        return step(state, twist[None], zs[None], valid[None], *ids,
+                    *rest[-2:])
 
     return tick
 
 
 class ServingEngine:
-    """Stateful single-robot serving loop over a blocked state.
+    """Stateful single-robot serving loop over a blocked state, known or
+    unknown association.
 
     ``measurements`` shorter than ``max_meas`` are padded with
     ``valid=False`` slots. The state's grid is updated in place."""
@@ -110,8 +107,6 @@ class ServingEngine:
     def __init__(self, config: EKFConfig, max_meas: int, Q, R,
                  known: bool = True, robot_pose=None, dense_state=None,
                  dtype=torch.float32, device="cpu", **kw):
-        if not known:
-            raise NotImplementedError(_UNKNOWN)
         self.config = config
         self.max_meas = max_meas
         self.known = known
@@ -131,24 +126,28 @@ class ServingEngine:
                                        **kw)
 
     def tick(self, twist, zs, valid=None, ids=None):
+        """One tick; ``ids`` is required with known association and
+        ignored without it."""
         M = self.max_meas
         dev = self.device
         zs = torch.as_tensor(zs, dtype=self._dtype, device=dev).reshape(-1, 2)
         m = zs.shape[0]
         if m > M:
             raise ValueError(f"{m} measurements > max_meas {M}")
-        if ids is None:
-            raise ValueError("known-association serving needs ids")
         pad = M - m
         if valid is None:
             valid = torch.ones(m, dtype=torch.bool, device=dev)
         valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
-        ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
         zs = torch.cat([zs, zs.new_zeros((pad, 2))])
         valid = torch.cat([valid, valid.new_zeros(pad)])
-        ids = torch.cat([ids, ids.new_zeros(pad)])
         tw = torch.as_tensor(twist, dtype=self._dtype, device=dev)
-        self.state = self._tick(self.state, tw, zs, valid, ids, self._Q,
+        args = ()
+        if self.known:
+            if ids is None:
+                raise ValueError("known-association serving needs ids")
+            ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+            args = (torch.cat([ids, ids.new_zeros(pad)]),)
+        self.state = self._tick(self.state, tw, zs, valid, *args, self._Q,
                                 self._R)
         return self.state
 

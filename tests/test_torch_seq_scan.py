@@ -1,6 +1,7 @@
 """The port's measurement scan (ops/kernels/seq_scan.py) against the JAX
-reference's Pallas scan (ops/pallas/seq_scan.py, known=True, interpret
-mode): the same numpy inputs through both.
+reference's Pallas scan (ops/pallas/seq_scan.py, interpret mode), known
+and unknown association: the same numpy inputs through both. The unknown
+branch is also held against the JAX XLA deferred unknown tick.
 
 Discrete outputs (slot kinds, slots, ``seen``, ``n_seen``) must be equal.
 Continuous outputs get atol 1e-5, the tolerance
@@ -17,7 +18,8 @@ import pytest
 import torch
 from jax.sharding import NamedSharding
 
-from _torch_parity import jax_to_numpy, scan_inputs
+from _torch_parity import (_swept_state, jax_to_numpy, scan_inputs,
+                           unknown_scan_inputs)
 from shermbot_navigation_tpu.models.ekf_slam import EKFConfig as JConfig
 from shermbot_navigation_tpu.ops.pallas import seq_scan as jsq
 from shermbot_navigation_tpu.parallel import blocked_ekf as jblocked
@@ -115,3 +117,109 @@ def test_wrapper_routes_cpu_to_plain():
     assert tsq.deferred_seq_scan.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         tsq.deferred_seq_scan(*args, use_kernel=True)
+
+
+# unknown association: (what, slot) per measurement (see
+# unknown_scan_inputs); the expected kinds (1 update / 2 init / 0 none)
+UNKNOWN_CASES = {
+    # match, skip (between the gates), new (at slot n_seen = U), invalid
+    "mixed": (False, [("match", 5), ("skip", 9), ("new", 20),
+                      ("invalid", 3)], [1, 0, 2, 0]),
+    # first hits at two slots, then a skip and a new landmark
+    "two_matches": (False, [("match", 30), ("match", 5), ("skip", 12),
+                            ("new", 2)], [1, 1, 0, 2]),
+    # full map: the new point overflows and stops the tick, so the exact
+    # revisits after it are inert
+    "overflow_then_stop": (True, [("match", 7), ("new", 20), ("match", 5),
+                                  ("new", 30)], [1, 0, 0, 0]),
+}
+
+
+def _run_unknown(x, ids=None, **kw):
+    return tsq.reference_seq_scan(
+        *(torch.from_numpy(np.array(x[k])) for k in x if k != "ids"
+          and k != "R"), ids, torch.from_numpy(x["R"]), known=False, **kw)
+
+
+@pytest.mark.parametrize("case", list(UNKNOWN_CASES))
+def test_unknown_reference_matches_jax_pallas_interpret(case):
+    """Discrete outputs equal, continuous atol 1e-5 (as the known case)."""
+    full, plan, kinds = UNKNOWN_CASES[case]
+    x = unknown_scan_inputs(N, M, plan, full=full)
+    want = jsq.deferred_seq_scan(
+        *(jnp.asarray(x[k]) for k in x), known=False,
+        match_gate=0.01, new_gate=60.0, wrap_innovation=False,
+        symmetrize=True, interpret=True)
+    margins = []
+    got = _run_unknown(x, gate_margins=margins)
+    for name, g, w in zip(NAMES, got, want):
+        g, w = g.numpy(), np.asarray(w)
+        if name in DISCRETE:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5,
+                                       err_msg=name)
+    assert got[-1].tolist() == kinds
+    assert int(got[6]) == int(x["n_seen"]) + kinds.count(2)
+    if case == "mixed":
+        assert got[-2].tolist() == [5, -1, U, -1]
+    # every active measurement's scores sit at least 10% away from both
+    # gates, far beyond what f32 rounding (~1e-6 relative) could cross
+    active = [m for m in margins if torch.isfinite(m)]
+    assert active and min(float(m) for m in active) > 0.1
+
+
+@pytest.mark.parametrize("case", ["mixed", "overflow_then_stop"])
+def test_unknown_tick_matches_jax_xla_f64(case):
+    """The port's unknown deferred tick (plain scan + grid pass) against
+    the JAX XLA ``make_sharded_deferred_unknown_step`` at map=1, f64, from
+    the same state: kinds decide identically, state to atol 1e-9."""
+    full, plan, _ = UNKNOWN_CASES[case]
+    x = unknown_scan_inputs(N, M, plan, full=full)
+    st, _ = _swept_state(N, M, 24, full)
+    st64 = {k: (v.double() if v.is_floating_point() else v).numpy()
+            for k, v in st._asdict().items()}
+    tw = np.zeros((1, 3))
+    zs = x["zs"].astype(np.float64)[None]
+    valid = x["valid"][None]
+    Q = np.diag([1e-4] * 3)
+    R = np.diag([1e-3] * 2)
+
+    mesh = make_mesh(jax.devices()[:1], data=1)
+    jcfg = JConfig(num_landmarks=N)
+    specs = jblocked.state_sharding(mesh)
+    jst = jblocked.BlockedState(**{k: jnp.asarray(v)
+                                   for k, v in st64.items()})
+    jst = jax.tree_util.tree_map(
+        lambda a, s: jax.device_put(a, NamedSharding(mesh, s)), jst, specs)
+    jstep = jblocked.make_sharded_deferred_unknown_step(jcfg, mesh, 1, M)
+    want = jax_to_numpy(jstep(jst, *map(jnp.asarray, (tw, zs, valid, Q, R))))
+
+    step = blocked_ekf.make_deferred_step(EKFConfig(num_landmarks=N), M,
+                                          "cpu", known=False)
+    got = step(blocked_ekf.BlockedState(
+        **{k: torch.from_numpy(v) for k, v in st64.items()}),
+        *map(torch.from_numpy, (tw, zs, valid, Q, R)))
+    for k in want:
+        g, w = getattr(got, k).numpy(), want[k]
+        if w.dtype.kind in "biu":
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-9,
+                                       err_msg=k)
+    if case == "overflow_then_stop":
+        assert int(got.n_seen[0]) == N
+
+
+def test_unknown_wrapper_routes_cpu_to_plain_without_ids():
+    x = unknown_scan_inputs(N, M, UNKNOWN_CASES["mixed"][1])
+    args = [torch.from_numpy(np.array(v)) for v in x.values()]
+    args[10] = None                               # ids
+    before = tsq.deferred_seq_scan.launches
+    got = tsq.deferred_seq_scan(*args, known=False)
+    want = _run_unknown(x)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert tsq.deferred_seq_scan.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tsq.deferred_seq_scan(*args, known=False, use_kernel=True)
