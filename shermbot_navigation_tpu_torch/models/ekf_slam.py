@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
 from ..ops import se2
 
 # Association outcomes (see `associate`).
@@ -81,10 +82,12 @@ class EKFState(NamedTuple):
 
 
 def init(config: EKFConfig, robot_pose, dtype=torch.float32,
-         device="cpu") -> EKFState:
+         device=None) -> EKFState:
     """Initial dense state (ref ctor slam_library.cpp:39-63 + initCov):
     zero robot block, ``init_cov`` on the 2N logical landmark diagonal,
-    zero on any padded tail."""
+    zero on any padded tail. ``device=None`` is the card
+    (``device.resolve``)."""
+    device = resolve(device)
     D = config.dim
     mean = torch.zeros(D, dtype=dtype, device=device)
     mean[:3] = torch.as_tensor(robot_pose, dtype=dtype, device=device)

@@ -44,6 +44,7 @@ SIGNATURES = {
     "grid_update": ("grid_update", [_P] * 7 + [_I] * 3 + [_P]),
     "seq_scan": ("seq_scan", [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P]),
     "cov_update": ("cov_update", [_P] * 8 + [_I] + [_P]),
+    "circle_moments": ("circle_moments", [_P] * 5 + [_I] * 2 + [_P]),
 }
 
 

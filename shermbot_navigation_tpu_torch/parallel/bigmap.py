@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
 from ..models.ekf_slam import EKFConfig, cartesian2polar
 from ..ops import se2
 from . import blocked_ekf
@@ -32,10 +33,12 @@ class BigMapWorkload(NamedTuple):
 
 
 def make_workload(N: int, T: int, M: int, spacing: float = 2.0,
-                  dtype=torch.float32, device="cpu") -> BigMapWorkload:
+                  dtype=torch.float32, device=None) -> BigMapWorkload:
     """Grid of N landmarks, a looping robot, and a schedule that sweeps the
     ids so every landmark is initialized and revisited (the JAX
-    ``make_workload``, whose key draws nothing)."""
+    ``make_workload``, whose key draws nothing). ``device=None`` is the
+    card (``device.resolve``)."""
+    device = resolve(device)
     side = math.ceil(math.sqrt(N))
     ii = torch.arange(N, device=device, dtype=torch.float64)
     lms = torch.stack([(torch.remainder(ii, side) - side / 2) * spacing,
@@ -120,9 +123,10 @@ def make_unknown_runner(cfg: EKFConfig, M: int, device,
     return run
 
 
-def noise(dtype=torch.float32, device="cpu"):
+def noise(dtype=torch.float32, device=None):
     """``run_bigmap``'s process and measurement noise: Q = diag(1e-4),
-    R = diag(1e-3)."""
+    R = diag(1e-3). ``device=None`` is the card."""
+    device = resolve(device)
     Q = torch.diag(torch.tensor([1e-4, 1e-4, 1e-4], dtype=dtype,
                                 device=device))
     R = torch.diag(torch.tensor([1e-3, 1e-3], dtype=dtype, device=device))
@@ -130,11 +134,12 @@ def noise(dtype=torch.float32, device="cpu"):
 
 
 def run_bigmap(N: int = 2048, T: int = 32, M: int = 8, batch: int = 1,
-               dtype=torch.float32, device="cpu",
+               dtype=torch.float32, device=None,
                seq_kernel: bool | None = None,
                grid_kernel: bool | None = None):
     """End-to-end config-4 run at batch 1; returns (final BlockedState,
-    workload)."""
+    workload). ``device=None`` is the card (``device.resolve``)."""
+    device = resolve(device)
     if batch != 1:
         raise NotImplementedError(
             "the port runs config 4 at batch 1; batched and map-sharded "

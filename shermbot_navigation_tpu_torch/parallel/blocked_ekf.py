@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
 from ..models.ekf_slam import EKFConfig, _motion_delta
 from ..ops import se2
 
@@ -42,9 +43,10 @@ class BlockedState(NamedTuple):
 
 
 def init(config: EKFConfig, batch: int, robot_pose=None,
-         dtype=torch.float32, device="cpu") -> BlockedState:
+         dtype=torch.float32, device=None) -> BlockedState:
     """Block-diagonal prior ``plane[p, q] = eye(N) * init_cov * eye(2)[p, q]``
-    (the JAX ``init``)."""
+    (the JAX ``init``). ``device=None`` is the card (``device.resolve``)."""
+    device = resolve(device)
     N = config.num_landmarks
     B = batch
     kw = dict(dtype=dtype, device=device)

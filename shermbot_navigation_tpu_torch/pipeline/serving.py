@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve
 from ..models.ekf_slam import EKFConfig, EKFState
 from ..parallel import blocked_ekf
 
@@ -66,10 +67,11 @@ def state_to_dense(config: EKFConfig, bst: blocked_ekf.BlockedState
 
 
 def make_serving_step(config: EKFConfig, max_meas: int, known: bool = True,
-                      dtype=torch.float32, device="cpu",
+                      dtype=torch.float32, device=None,
                       seq_kernel: bool | None = None,
                       grid_kernel: bool | None = None, donate: bool = True):
-    """Build the single-robot serving tick on ``device``.
+    """Build the single-robot serving tick on ``device`` (``None`` is the
+    card, ``device.resolve``).
 
     Returns ``tick(state, twist (3,), zs (M, 2), valid (M,), ids (M,),
     Q, R) -> state`` for ``known=True``, and ``tick(state, twist, zs,
@@ -80,6 +82,7 @@ def make_serving_step(config: EKFConfig, max_meas: int, known: bool = True,
     (serving states are linear chains); ``donate=False`` copies it first.
     ``dtype`` is the state's dtype (the kernels take f32 only).
     """
+    device = resolve(device)
     step = blocked_ekf.make_deferred_step(config, max_meas, device,
                                           known=known, seq_kernel=seq_kernel,
                                           grid_kernel=grid_kernel)
@@ -102,15 +105,16 @@ class ServingEngine:
     unknown association.
 
     ``measurements`` shorter than ``max_meas`` are padded with
-    ``valid=False`` slots. The state's grid is updated in place."""
+    ``valid=False`` slots. The state's grid is updated in place.
+    ``device=None`` is the card (``device.resolve``)."""
 
     def __init__(self, config: EKFConfig, max_meas: int, Q, R,
                  known: bool = True, robot_pose=None, dense_state=None,
-                 dtype=torch.float32, device="cpu", **kw):
+                 dtype=torch.float32, device=None, **kw):
         self.config = config
         self.max_meas = max_meas
         self.known = known
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._dtype = dtype
         self._Q = torch.as_tensor(Q, dtype=dtype, device=self.device)
         self._R = torch.as_tensor(R, dtype=dtype, device=self.device)

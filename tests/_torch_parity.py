@@ -11,8 +11,10 @@ torch.set_num_threads(1)
 
 def jax_to_numpy(state) -> dict:
     """A JAX NamedTuple state as the dict of numpy arrays that
-    ``shermbot_navigation_tpu_torch.utils.convert`` reads."""
-    return {k: np.asarray(v) for k, v in state._asdict().items()}
+    ``shermbot_navigation_tpu_torch.utils.convert`` reads (a nested state
+    as a nested dict)."""
+    return {k: (jax_to_numpy(v) if hasattr(v, "_asdict") else np.asarray(v))
+            for k, v in state._asdict().items()}
 
 
 def assert_state_close(got, want: dict, atol: float, fields=None):
@@ -50,12 +52,12 @@ def _swept_state(N, M, ticks, full):
     from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
     from shermbot_navigation_tpu_torch.parallel import bigmap, blocked_ekf
     cfg = EKFConfig(num_landmarks=N)
-    wl = bigmap.make_workload(N, ticks, M)
+    wl = bigmap.make_workload(N, ticks, M, device="cpu")
     if not full:
         wl = wl._replace(schedule=wl.schedule % (N - N // 8))
-    Q, R = bigmap.noise()
-    st = bigmap.make_runner(cfg, M, "cpu")(blocked_ekf.init(cfg, 1), wl, Q,
-                                           R, 0, ticks)
+    Q, R = bigmap.noise(device="cpu")
+    st = bigmap.make_runner(cfg, M, "cpu")(
+        blocked_ekf.init(cfg, 1, device="cpu"), wl, Q, R, 0, ticks)
     return st, wl
 
 
@@ -110,3 +112,46 @@ def _scan_dict(st, zs, valid, ids) -> dict:
         ids=np.zeros(len(zs), np.int32) if ids is None
         else np.asarray(ids, np.int32),
         R=np.diag([1e-3, 1e-3]).astype(np.float32))
+
+
+def replay_tick_noise(keys, ticks, substeps, num_rays, num_tubes,
+                      dtype=np.float32):
+    """The standard draws the JAX driver makes from PRNG ``keys`` (B, 2)
+    over ``ticks`` SLAM ticks, as numpy arrays with leading ``(T, B)`` in
+    the layout of the port's ``TickNoise``: the key tree of
+    ``pipeline/driver.sense_tick`` (split into ``substeps + 2``),
+    ``tube_world.step_dynamics`` (split in two; ``normal(kt, (2,))``,
+    ``normal(ks, (2,))``) and ``tube_world.observe`` (split in three;
+    lidar normals, marker-keep and scan-keep uniforms) is walked with
+    ``jax.random`` itself."""
+    import jax
+    import jax.numpy as jnp
+    jdt = jnp.dtype(dtype)
+
+    def tick(key, _):
+        key, k_obs, *sub = jax.random.split(key, substeps + 2)
+        pairs = [jax.random.split(k, 2) for k in sub]
+        k_lidar, k_drop_m, k_drop_s = jax.random.split(k_obs, 3)
+        out = dict(
+            twist=jnp.stack([jax.random.normal(p[0], (2,), jdt)
+                             for p in pairs]),
+            slip=jnp.stack([jax.random.normal(p[1], (2,), jdt)
+                            for p in pairs]),
+            scan=jax.random.normal(k_lidar, (num_rays,), jdt),
+            marker_keep=jax.random.uniform(k_drop_m, (num_tubes,)
+                                           ).astype(jdt),
+            scan_keep=jax.random.uniform(k_drop_s, (num_rays,)).astype(jdt))
+        return key, out
+
+    def one(key):
+        return jax.lax.scan(tick, key, None, length=ticks)[1]
+
+    out = jax.jit(jax.vmap(one))(jnp.asarray(keys))
+    return {k: np.swapaxes(np.asarray(v), 0, 1) for k, v in out.items()}
+
+
+def tick_noise_from_numpy(arrays: dict, device="cpu"):
+    """A numpy noise dict (fields of ``TickNoise``) as the port's
+    ``TickNoise``."""
+    from shermbot_navigation_tpu_torch.sim.tube_world import TickNoise
+    return TickNoise(**{k: torch.from_numpy(np.array(arrays[k])).to(device) for k in TickNoise._fields})

@@ -1,6 +1,6 @@
 """Write the JAX reference's golden fixtures for ``chip_smoke.py``.
 
-All three come from the JAX package's XLA paths (no Pallas kernel; the CPU
+All four come from the JAX package's XLA paths (no Pallas kernel; the CPU
 backend) in f32, at full width:
 
 - ``serving_n2048_golden.json`` (``known``): config-4 serving,
@@ -18,11 +18,23 @@ backend) in f32, at full width:
   ``[tM, tM+M) mod N``, exact measurements, twist 0, Q = 1e-6 I,
   R = 1e-3 I, ``symmetrize=False``, ``pallas_update='off'``, 32 ticks.
 
-    python tests/fixtures/make_serving_golden.py [known] [unknown] [dense]
+- ``lidar20_golden.json`` (``lidar20``): config 3, scenario
+  ``lidar20_full`` (20 tubes, 360 rays, 16 clusters of 64 points, unknown
+  association at the reference's first-hit gates, slip 0.95-1.0, 600 ticks
+  of 5 sim substeps) through ``pipeline/driver.run_scenario_batch_lanes``
+  for 8 worlds: 7 noisy ones from fixed keys, and a deterministic one
+  (slip 0.975, no noise), which is the same scenario with every slip draw
+  at zero. It holds the standard slip normals the JAX key tree draws for
+  the noisy worlds (the only draws this scenario scales by something other
+  than zero; little-endian f32, base64), the number of valid detections
+  and ``n_seen`` at every tick, the three poses every 10th tick, and each
+  world's final ATE.
 
-(no argument: all three). Each file holds a few KB: final robot mean and
-covariance, landmark and covariance sums, and covariance entries at seeded
-sample positions.
+    python tests/fixtures/make_serving_golden.py [known] [unknown] [dense] [lidar20]
+
+(no argument: all four). The first three files hold a few KB: final robot
+mean and covariance, landmark and covariance sums, and covariance entries
+at seeded sample positions; the fourth ~0.3 MB, most of it noise.
 """
 
 from __future__ import annotations
@@ -40,7 +52,11 @@ SAMPLE_SEED = 7
 HERE = Path(__file__).resolve().parent
 OUT = {"known": HERE / "serving_n2048_golden.json",
        "unknown": HERE / "serving_unknown_n2048_golden.json",
-       "dense": HERE / "dense_n2048_golden.json"}
+       "dense": HERE / "dense_n2048_golden.json",
+       "lidar20": HERE / "lidar20_golden.json"}
+LIDAR_KEYS_SEED = 20      # PRNGKey(seed) split into the noisy worlds' keys
+LIDAR_NOISY = 7
+LIDAR_POSE_EVERY = 10
 
 
 def sample_positions(n: int, k: int, seed: int):
@@ -182,6 +198,69 @@ def dense_golden(jax, jnp, np):
     }
 
 
+def _lidar_run(jax, jnp, np, scn, keys):
+    """``run_scenario_batch_lanes`` outputs plus the number of valid
+    detections per tick (the sense chain alone, replayed beside it)."""
+    from shermbot_navigation_tpu.pipeline import driver
+    outs = driver.run_scenario_batch_lanes(scn, keys, None, jnp.float32)
+    params = scn.world_params(jnp.float32)
+    cmds = driver.command_twist(scn, jnp.arange(scn.steps), jnp.float32)
+
+    def one(key):
+        st = driver.init_pipeline(scn, jnp.float32)._replace(key=key)
+
+        def body(sense, cmd):
+            sense, _, _, valid, _ = driver.sense_tick(scn, params, sense, cmd)
+            return sense, jnp.sum(valid)
+
+        return jax.lax.scan(body, driver.SenseState(st.world, st.odom,
+                                                    st.key), cmds)[1]
+
+    n_det = jax.jit(jax.vmap(one))(keys)
+    return ({k: np.asarray(v) for k, v in outs._asdict().items()},
+            np.asarray(n_det))
+
+
+def lidar20_golden(jax, jnp, np):
+    import base64
+    import dataclasses
+    sys.path.insert(0, str(HERE.parent))
+    from _torch_parity import replay_tick_noise
+    from shermbot_navigation_tpu.pipeline.config import get_scenario
+    scn = get_scenario("lidar20_full")
+    det = dataclasses.replace(scn, slip_min=0.975, slip_max=0.975)
+    keys = jax.random.split(jax.random.PRNGKey(LIDAR_KEYS_SEED), LIDAR_NOISY)
+    outs, n_det = _lidar_run(jax, jnp, np, scn, keys)
+    douts, dn_det = _lidar_run(jax, jnp, np, det, keys[:1])
+    outs = {k: np.concatenate([outs[k], douts[k]]) for k in outs}
+    n_det = np.concatenate([n_det, dn_det])
+    noise = replay_tick_noise(np.asarray(keys), scn.steps, scn.sim_substeps,
+                              360, len(scn.tubes), np.float32)
+    slip = np.ascontiguousarray(noise["slip"], "<f4")       # (T, 7, S, 2)
+    d = outs["slam_pose"][:, :, 1:].astype(np.float64) \
+        - outs["true_pose"][:, :, 1:].astype(np.float64)
+    ate = np.sqrt(np.mean(np.sum(d * d, axis=-1), axis=-1))
+    ev = slice(LIDAR_POSE_EVERY - 1, None, LIDAR_POSE_EVERY)
+    return {
+        "source": "shermbot_navigation_tpu.pipeline.driver."
+                  "run_scenario_batch_lanes(lidar20_full), XLA, CPU, "
+                  "float32; ATE over all 600 ticks, positions [x, y]",
+        "scenario": "lidar20_full", "T": scn.steps, "B": LIDAR_NOISY + 1,
+        "noisy_worlds": LIDAR_NOISY, "keys_seed": LIDAR_KEYS_SEED,
+        "deterministic_world": "last; slip_min = slip_max = 0.975, i.e. "
+                               "every slip normal zero",
+        "slip_normals_shape": list(slip.shape),
+        "slip_normals_f32_b64": base64.b64encode(slip.tobytes()).decode(),
+        "n_detections": n_det.tolist(),
+        "n_seen": outs["n_seen"].tolist(),
+        "pose_every": LIDAR_POSE_EVERY,
+        "true_pose": outs["true_pose"][:, ev].tolist(),
+        "odom_pose": outs["odom_pose"][:, ev].tolist(),
+        "slam_pose": outs["slam_pose"][:, ev].tolist(),
+        "ate": ate.tolist(),
+    }
+
+
 def main(which):
     os.environ["JAX_PLATFORMS"] = "cpu"
     sys.path.insert(0, str(HERE.parents[1]))
@@ -190,7 +269,7 @@ def main(which):
     import jax.numpy as jnp
     import numpy as np
     makers = {"known": known_golden, "unknown": unknown_golden,
-              "dense": dense_golden}
+              "dense": dense_golden, "lidar20": lidar20_golden}
     for name in which:
         t0 = time.perf_counter()
         golden = makers[name](jax, jnp, np)
@@ -199,4 +278,4 @@ def main(which):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["known", "unknown", "dense"])
+    main(sys.argv[1:] or ["known", "unknown", "dense", "lidar20"])

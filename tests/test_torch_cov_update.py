@@ -78,7 +78,7 @@ def _known_trajectory(pkg, cfg, dtype, T=5, M=3, N=6):
         st = jekf.init(cfg, jnp.zeros(3, jnp.float32))
         conv = jnp.asarray
     else:
-        st = tekf.init(cfg, [0.0, 0.0, 0.0], dtype=dtype)
+        st = tekf.init(cfg, [0.0, 0.0, 0.0], dtype=dtype, device="cpu")
         conv = torch.from_numpy
     for t in range(T):
         st = pkg.known_association_step(

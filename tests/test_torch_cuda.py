@@ -12,7 +12,9 @@ version by summation order, libm ulps and the row-for-column grid read
 (PARITY D13), atol 1e-5 at these small sizes and few ticks; the fused
 Kalman update differs from the plain version's two matmuls by the order
 of a 2-term sum (atol 1e-5 for O(1) operands), and with ``apply`` false
-it is an exact copy.
+it is an exact copy; the circle moments are sums of <= P products of O(1)
+terms taken in another order (rtol 1e-5, atol 1e-5; the count entry is
+exact).
 """
 
 import numpy as np
@@ -22,6 +24,9 @@ import torch
 from _torch_parity import grid_operands, scan_inputs, unknown_scan_inputs
 from shermbot_navigation_tpu_torch.models import ekf_slam
 from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
+from shermbot_navigation_tpu_torch.ops import circle_fit, landmark_detection
+from shermbot_navigation_tpu_torch.ops.clustering import Clusters
+from shermbot_navigation_tpu_torch.ops.kernels import circle_moments as tcm
 from shermbot_navigation_tpu_torch.ops.kernels import cov_update as tcu
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as tgu
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as tsq
@@ -219,3 +224,88 @@ def test_dense_on_route_matches_off_route(dev):
     torch.testing.assert_close(b.mean[:D], a.mean, rtol=0, atol=1e-5)
     torch.testing.assert_close(b.cov[:D, :D], a.cov, rtol=0, atol=1e-4)
     assert not b.cov[D:].any() and not b.mean[D:].any()
+
+
+@pytest.mark.parametrize("lead,P", [((16,), 64), ((3, 7), 45), ((1,), 1),
+                                    ((5,), 200)])
+def test_circle_moments_kernel_matches_plain(dev, lead, P):
+    """Any C and P (C no multiple of 8, P no multiple of 32, P beyond the
+    rows a lane keeps in registers), leading batch dimensions, counts of
+    0, 1..3, exactly P and more than P; rows at and past a count hold NaN,
+    so only the mask decides."""
+    rng = np.random.default_rng(P)
+    C = int(np.prod(lead))
+    pts = rng.normal(size=(*lead, P, 2)).astype(np.float32)
+    cnt = rng.integers(0, P + 1, lead)
+    flat = cnt.reshape(-1)
+    flat[0 % C], flat[1 % C], flat[2 % C] = P, P + 17, min(P, 2)
+    flat[3 % C] = 0
+    pts[np.arange(P) >= cnt[..., None]] = np.nan
+    pts, cnt = torch.from_numpy(pts).to(dev), torch.from_numpy(cnt).to(dev)
+    before = tcm.circle_moments_raw.launches
+    got = tcm.circle_moments_raw(pts, cnt)
+    torch.cuda.synchronize()
+    assert tcm.circle_moments_raw.launches == before + 1
+    want = tcm.circle_moments_raw(pts, cnt, use_kernel=False)
+    assert [tuple(g.shape) for g in got] == [(*lead, 16), (*lead, 2), lead]
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[0][..., 15], want[0][..., 15])
+
+
+def test_circle_moments_kernel_raises_on_f64(dev):
+    pts = torch.zeros((4, 8, 2), dtype=torch.float64, device=dev)
+    cnt = torch.full((4,), 5, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        tcm.circle_moments_raw(pts, cnt)
+    with pytest.raises(ValueError, match="counts"):
+        tcm.circle_moments_raw(pts.float(), cnt.float())
+
+
+def test_fit_circles_and_buffered_detection_launch_the_kernel(dev):
+    """``fit_circles`` on CUDA f32 clusters goes through the kernel (one
+    launch) and agrees with the plain-moments route: ``valid`` equal,
+    centre and radius within 1e-4 (noisy arcs, so the moment matrices are
+    well away from the fit's rank-deficiency switch); so does the buffered
+    ``detect_landmarks`` on a scan of three tubes."""
+    rng = np.random.default_rng(2)
+    C, P = 12, 64
+    cnt = rng.integers(0, 40, C)
+    cnt[:3] = [3, 4, 70]
+    arc = rng.uniform(0.0, np.pi, (C, P))
+    pts = np.stack([0.5 + 0.04 * np.cos(arc), 0.3 + 0.04 * np.sin(arc)], -1)
+    pts += rng.normal(scale=1e-3, size=pts.shape)
+    cl = Clusters(points=torch.from_numpy(pts.astype(np.float32)).to(dev),
+                  counts=torch.from_numpy(cnt.astype(np.int32)).to(dev),
+                  valid=torch.from_numpy(cnt >= 3).to(dev))
+    before = tcm.circle_moments_raw.launches
+    got = circle_fit.fit_circles(cl)
+    assert tcm.circle_moments_raw.launches == before + 1
+    want = circle_fit.fit_circles(cl, use_kernel=False)
+    assert torch.equal(got.valid, want.valid) and bool(got.valid.any())
+    ok = got.valid
+    torch.testing.assert_close(got.center[ok], want.center[ok], rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(got.radius[ok], want.radius[ok], rtol=0,
+                               atol=1e-4)
+
+    ang = np.deg2rad(np.arange(360.0))
+    ranges = np.full((2, 360), 2.0)
+    for cx, cy in ((0.6, 0.0), (0.0, 0.5), (-0.4, -0.4)):
+        b = cx * np.cos(ang) + cy * np.sin(ang)
+        disc = b * b - (cx * cx + cy * cy - 0.0381 ** 2)
+        hit = (disc > 0) & (b > 0)
+        t = np.where(hit, b - np.sqrt(np.maximum(disc, 0.0)), 2.0)
+        ranges = np.minimum(ranges, t)
+    ranges += rng.normal(scale=2e-4, size=ranges.shape) * (ranges < 1.5)
+    scan = torch.from_numpy(ranges.astype(np.float32)).to(dev)
+    before = tcm.circle_moments_raw.launches
+    buf = landmark_detection.detect_landmarks(scan, 0.05, 1.0,
+                                              segmented=False)
+    assert tcm.circle_moments_raw.launches == before + 1
+    seg = landmark_detection.detect_landmarks(scan, 0.05, 1.0)
+    assert torch.equal(buf.valid, seg.valid)
+    assert buf.valid.sum(-1).tolist() == [3, 3]
+    torch.testing.assert_close(buf.positions[buf.valid],
+                               seg.positions[seg.valid], rtol=0, atol=1e-3)

@@ -41,7 +41,7 @@ def _states_close(got, want: dict, rtol=RTOL, atol=ATOL):
 def _both(state: dict):
     """A numpy state as (JAX EKFState, port EKFState)."""
     return (jekf.EKFState(**{k: jnp.asarray(v) for k, v in state.items()}),
-            convert.ekf_state_from_numpy(state))
+            convert.ekf_state_from_numpy(state, "cpu"))
 
 
 def _served(N, n_init, seed=1, pad=0):
@@ -123,7 +123,7 @@ def test_update_apply_flag_is_an_exact_select():
                              pallas_update=mode)
         ts = convert.ekf_state_from_numpy(
             {k: v.astype(np.float32) if v.dtype == np.float64 else v
-             for k, v in state.items()})
+             for k, v in state.items()}, "cpu")
         z, R = torch.tensor([1.0, 0.5]), torch.from_numpy(R2).float()
         off = tekf.update(cfg, ts, z, 1, R, apply=torch.tensor(False))
         assert torch.equal(off.mean, ts.mean) and torch.equal(off.cov, ts.cov)
@@ -153,7 +153,7 @@ def test_init_landmark_and_analytic_init_cov(N):
                                       torch.from_numpy(R2))
         _close(cov.numpy(), want)
     assert torch.equal(ts.cov, convert.ekf_state_from_numpy(
-        jax_to_numpy(js)).cov)                     # the input is untouched
+        jax_to_numpy(js), "cpu").cov)              # the input is untouched
     _close(tekf._slot_cols(ts.cov, torch.tensor(2)).numpy(),
            jekf._slot_cols(js.cov, 2, jekf._slot_onehot(cfg_j.dim, 2,
                                                          jnp.float64)))
@@ -221,7 +221,8 @@ def test_known_association_step_matches_jax_with_sticky_stop():
     cfg_j, cfg_t = jekf.EKFConfig(num_landmarks=N), tekf.EKFConfig(
         num_landmarks=N)
     js = jekf.init(cfg_j, jnp.array([0.1, 0.2, -0.1]), dtype=jnp.float64)
-    ts = tekf.init(cfg_t, [0.1, 0.2, -0.1], dtype=torch.float64)
+    ts = tekf.init(cfg_t, [0.1, 0.2, -0.1], dtype=torch.float64,
+                   device="cpu")
     for t in range(T):
         args = (twists[t], zs[t], valid[t], ids[t], Q3, R2)
         js = jekf.known_association_step(cfg_j, js, *map(jnp.asarray, args))
@@ -252,7 +253,8 @@ def test_step_unknown_matches_jax_with_overflow():
     cfg_j, cfg_t = jekf.EKFConfig(num_landmarks=N), tekf.EKFConfig(
         num_landmarks=N)
     js = jekf.init(cfg_j, jnp.zeros(3), dtype=jnp.float64)
-    ts = tekf.init(cfg_t, [0.0, 0.0, 0.0], dtype=torch.float64)
+    ts = tekf.init(cfg_t, [0.0, 0.0, 0.0], dtype=torch.float64,
+                   device="cpu")
     for t in range(T):
         args = (twists[t], zs[t], valid[t], Q3, R2)
         js = jekf.step(cfg_j, js, *map(jnp.asarray, args))
@@ -307,10 +309,11 @@ def test_padded_dense_state_crosses_both_ways():
                                                  pad_state_to=D),
                                   jnp.array([0.1, 0.2, -0.1]),
                                   dtype=jnp.float32))
-    st = convert.ekf_state_from_numpy(want)
+    st = convert.ekf_state_from_numpy(want, "cpu")
     assert st.cov.shape == (D, D) and st.cov.dtype == torch.float32
     _states_close(st, want, 0, 0)
-    _states_close(tekf.init(cfg, [0.1, 0.2, -0.1]), want, 0, 0)
+    _states_close(tekf.init(cfg, [0.1, 0.2, -0.1], device="cpu"), want, 0,
+                  0)
     back = convert.ekf_state_to_numpy(st)
     for k in want:
         np.testing.assert_array_equal(back[k], want[k], err_msg=k)

@@ -95,7 +95,7 @@ def test_out_of_range_id_is_noop():
 
     cfg = EKFConfig(num_landmarks=N)
     step = blocked_ekf.make_deferred_step(cfg, M, "cpu")
-    b = step(blocked_ekf.init(cfg, 1),
+    b = step(blocked_ekf.init(cfg, 1, device="cpu"),
              *map(torch.from_numpy, (tw, zs, valid, ids, Q, R)))
     assert int(a.n_seen[0]) == int(b.n_seen[0]) == 2
     np.testing.assert_array_equal(np.asarray(a.seen), b.seen.numpy())

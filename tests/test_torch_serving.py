@@ -102,8 +102,8 @@ def _run_both(T, np_dtype, jax_kw, torch_kw, known=True):
                                        donate=False, **jax_kw)
     eng = tserving.ServingEngine(
         tcfg, M, torch.from_numpy(Q), torch.from_numpy(R), dtype=tdt,
-        known=known, dense_state=convert.ekf_state_from_numpy(dense),
-        **torch_kw)
+        known=known, dense_state=convert.ekf_state_from_numpy(dense, "cpu"),
+        device="cpu", **torch_kw)
     for t in range(T):
         args = (twists[t].astype(np_dtype), zs[t].astype(np_dtype), valid[t],
                 ids[t])[:4 if known else 3]
@@ -156,7 +156,7 @@ def test_serving_matches_jax_kernel_interpret_f32():
 def test_state_roundtrip_bitwise():
     dense = _converged_dense(5, jnp.float64)
     cfg = tekf.EKFConfig(num_landmarks=N)
-    st = convert.ekf_state_from_numpy(dense)
+    st = convert.ekf_state_from_numpy(dense, "cpu")
     blocked = tserving.state_from_dense(cfg, st)
     back = convert.ekf_state_to_numpy(tserving.state_to_dense(cfg, blocked))
     for k in dense:
@@ -176,15 +176,15 @@ def test_init_and_convert_match_jax():
     jcfg = jekf.EKFConfig(num_landmarks=N)
     tcfg = tekf.EKFConfig(num_landmarks=N)
     jdense = jax_to_numpy(jekf.init(jcfg, jnp.array(pose), dtype=jnp.float64))
-    tdense = tekf.init(tcfg, pose, dtype=torch.float64)
+    tdense = tekf.init(tcfg, pose, dtype=torch.float64, device="cpu")
     assert_state_close(tdense, jdense, 0.0)
     jblocked = jax_to_numpy(jblocked_ekf.init(jcfg, 1, robot_pose=pose,
                                               dtype=jnp.float64))
     tblocked = tblocked_ekf.init(tcfg, 1, robot_pose=pose,
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     assert_state_close(tblocked, jblocked, 0.0)
     back = convert.blocked_state_to_numpy(
-        convert.blocked_state_from_numpy(jblocked))
+        convert.blocked_state_from_numpy(jblocked, "cpu"))
     for k in jblocked:
         np.testing.assert_array_equal(back[k], jblocked[k], err_msg=k)
         assert back[k].dtype == jblocked[k].dtype, k
@@ -196,7 +196,8 @@ def test_run_bigmap_matches_jax_f64():
     ticks, so the last ticks update a full map; pose error via ``ate``."""
     Nb, T, Mb = 32, 12, 4
     js, jwl = jbigmap.run_bigmap(N=Nb, T=T, M=Mb, dtype=jnp.float64)
-    ts, twl = tbigmap.run_bigmap(N=Nb, T=T, M=Mb, dtype=torch.float64)
+    ts, twl = tbigmap.run_bigmap(N=Nb, T=T, M=Mb, dtype=torch.float64,
+                                 device="cpu")
     assert int(ts.n_seen[0]) == Nb
     assert_state_close(ts, jax_to_numpy(js), 1e-9)
     jtrue = jbigmap._true_pose(jwl.cmd, jnp.float64(T), jnp.float64)
@@ -216,10 +217,12 @@ def test_serving_matches_port_dense_engine(known):
     cfg = tekf.EKFConfig(num_landmarks=N)
     T = 4 if known else 7
     twists, zs, valid, ids = _inputs(T) if known else _unknown_inputs(T)
-    dense = convert.ekf_state_from_numpy(_converged_dense(3, jnp.float64))
+    dense = convert.ekf_state_from_numpy(_converged_dense(3, jnp.float64),
+                                         "cpu")
     srv = tserving.state_from_dense(cfg, dense)
     tick = tserving.make_serving_step(cfg, M, known=known,
-                                      dtype=torch.float64, donate=False)
+                                      dtype=torch.float64, device="cpu",
+                                      donate=False)
     Q = torch.from_numpy(Q3 if known else np.diag([1e-4] * 3))
     R = torch.from_numpy(R2)
     for t in range(T):
@@ -263,9 +266,10 @@ def test_unknown_runner_matches_jax_f64():
         jst, jwl, jnp.asarray(Q), jnp.asarray(R), jnp.int32(0), T))
 
     tcfg = tekf.EKFConfig(num_landmarks=Nb)
-    twl = tbigmap.make_workload(Nb, T, Mb, dtype=torch.float64)
+    twl = tbigmap.make_workload(Nb, T, Mb, dtype=torch.float64,
+                                device="cpu")
     got = tbigmap.make_unknown_runner(tcfg, Mb, "cpu")(
-        tblocked_ekf.init(tcfg, 1, dtype=torch.float64), twl,
+        tblocked_ekf.init(tcfg, 1, dtype=torch.float64, device="cpu"), twl,
         torch.from_numpy(Q), torch.from_numpy(R), 0, T)
     assert int(got.n_seen[0]) > Nb // 2
     _assert_serving_close(got, want, 1e-9)
@@ -277,7 +281,7 @@ def test_engine_pads_measurements_and_rejects_unknown():
     cfg = tekf.EKFConfig(num_landmarks=N)
     eng = tserving.ServingEngine(cfg, max_meas=M, Q=Q3, R=R2,
                                  robot_pose=[0.0, 0.0, 0.0],
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     eng.tick([0.0, 0.0, 0.0], [[0.7, 0.5], [0.9, -1.0]], ids=[0, 1])
     assert eng.n_seen == 2
     assert torch.isfinite(eng.pose).all()
@@ -285,10 +289,35 @@ def test_engine_pads_measurements_and_rejects_unknown():
         eng.tick([0.0, 0.0, 0.0], [[0.7, 0.5]])
     unk = tserving.ServingEngine(cfg, max_meas=M, Q=Q3, R=R2, known=False,
                                  robot_pose=[0.0, 0.0, 0.0],
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     unk.tick([0.0, 0.0, 0.0], [[0.7, 0.5], [0.9, -1.0]])
     unk.tick([0.0, 0.0, 0.0], [[0.7, 0.5], [0.9, -1.0]], ids=[5, 6])
     assert unk.n_seen == 2          # the revisits matched
+
+
+def test_entry_points_default_to_the_card_not_the_cpu():
+    """The fault and its repair: an entry point called without a device
+    runs on the card; where there is none it raises, naming
+    ``device="cpu"``, and never carries on on the CPU by itself. Asked for
+    the CPU, it runs there."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default would run on it")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tbigmap.run_bigmap(N=64, T=2, M=8)
+    st, _ = tbigmap.run_bigmap(N=64, T=2, M=8, device="cpu")
+    assert int(st.n_seen[0]) == 16 and st.mean_r.device.type == "cpu"
+    cfg = tekf.EKFConfig(num_landmarks=N)
+    for call in (
+            lambda: tekf.init(cfg, [0.0, 0.0, 0.0]),
+            lambda: tblocked_ekf.init(cfg, 1),
+            lambda: tbigmap.make_workload(64, 2, 8),
+            lambda: tbigmap.noise(),
+            lambda: tserving.make_serving_step(cfg, M),
+            lambda: tserving.ServingEngine(cfg, M, Q3, R2),
+            lambda: convert.ekf_state_from_numpy({}),
+            lambda: convert.blocked_state_from_numpy({})):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
 
 
 def test_port_imports_no_jax():
