@@ -12,7 +12,7 @@ It imports nothing of JAX. Phases, one JSON line each:
 
 1. device  -- card name and power limit (nvidia-smi), torch/CUDA versions,
               the TF32 switches (all off);
-2. build   -- the four CUDA kernels built from ``csrc/``, one ``nvcc``
+2. build   -- the four CUDA sources under ``csrc/`` built, one ``nvcc``
               each, all at once (seconds; registers, shared memory and
               spill bytes of every kernel from ptxas);
 3. grid_update against its plain version at N=2048, M=8 on the card;
@@ -56,7 +56,17 @@ It imports nothing of JAX. Phases, one JSON line each:
    clusters of a real batch of scans (config 3's sim after 25 ticks), with
    counts overwritten in places to 0, 1-3, exactly P and more than P and
    every row at and past a count poisoned with NaN; once more at C=1001,
-   P=45; and the circle fits behind both moment routes;
+   P=45; and the circle fits behind both moment routes. Then (phase
+   circle_fit) the whole-fit kernel on the same three sets of clusters (as
+   the scan gave them, with the edge counts, and at C=1001, P=45): its
+   moments within the same bounds of the plain version's and equal to the
+   moment kernel's, its centre, radius and ok equal BIT FOR BIT to the
+   plain chain on its own moments and to the moment kernel's route; and
+   the tail kernel bit for bit against the plain chain on the segmented
+   path's own moments of the same scans. A difference fails the phase
+   after naming the first differing cluster, the first of the tail's
+   intermediates where the kernel's trace and the plain version's part,
+   and the branch each took;
 13. config3 -- ``pipeline/driver.run_scenario_batch_lanes(lidar20_full)``
    at B=1024 worlds, f32, T_CONFIG3 ticks: the first 8 worlds take their
    slip draws from ``tests/fixtures/lidar20_golden.json`` (7 noisy, 1
@@ -65,17 +75,27 @@ It imports nothing of JAX. Phases, one JSON line each:
    ``n_seen`` at every tick, poses within stated bounds, the
    deterministic world's ATE within 1e-3 m; median-world ATE, diverged
    fraction and median ``n_seen`` over all worlds; the smallest margins of
-   a split, a circle and a gate decision to their thresholds;
+   a split, a circle and a gate decision to their thresholds; the tail
+   kernel's counter equals the ticks run (path A's fit);
 14. perception_buffered -- on every tick's (1024, 360) scans of phase 13,
-   ``detect_landmarks(segmented=False)`` through the circle_moments
-   kernel: ``valid`` equal to phase 13's segmented detections and to the
+   ``detect_landmarks(segmented=False)`` through the whole-fit kernel:
+   ``valid`` equal to phase 13's segmented detections and to the
    plain-version route on the card, positions within stated bounds; the
-   circle_moments counter equals the ticks run;
+   circle_fit counter equals the ticks run. On every 50th tick's clusters
+   also the tensor-form fit (``fit_circles(componentized=False)``, behind
+   the moment kernel): its counter equals those ticks, its fits held to
+   the whole-fit kernel's within the phase-12 bounds;
 15. config3_timing -- ms per tick and worlds x ticks / s of config 3,
-   split by host clock into noise, sim, perception and filter; ms per
-   call of circle_moments and its plain version; the library calls that
-   compute what grid_update and cov_update compute (``torch.baddbmm``,
-   ``torch.addmm``), timed here and used nowhere in the port.
+   split by host clock into noise, sim, perception and filter; device
+   kernels a tick of the whole tick and of path A's perception stage
+   (``torch.profiler``); ms per call (CUDA events), device ms
+   (``torch.profiler``) and plain ms of circle_moments, circle_fit and
+   circle_fit_tail, and the fit's latency floor: one dependent read of
+   device memory (the scan's probe) + the tail's dependent chain (the fit
+   kernel's probe: one warp, each fit waiting for the last); the library
+   calls that compute what grid_update and cov_update compute
+   (``torch.baddbmm``, ``torch.addmm``), timed here and used nowhere in
+   the port.
 
 16. kernel_scaling -- the serving tick's two kernels at N = 2048, 8192 and
    16384 (M=8): the known-association tick through ``ServingEngine`` until
@@ -114,7 +134,9 @@ from shermbot_navigation_tpu_torch.models import ekf_batch, ekf_slam
 from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
 from shermbot_navigation_tpu_torch.ops import circle_fit, clustering
 from shermbot_navigation_tpu_torch.ops import diff_drive, se2, smallalg
+from shermbot_navigation_tpu_torch.ops import landmark_detection
 from shermbot_navigation_tpu_torch.ops.kernels import _build
+from shermbot_navigation_tpu_torch.ops.kernels import circle_fit as cfk
 from shermbot_navigation_tpu_torch.ops.kernels import circle_moments as cmk
 from shermbot_navigation_tpu_torch.ops.kernels import cov_update as cu
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as gu
@@ -315,10 +337,26 @@ KERNELS = {
         "source": f"{PKG}/csrc/cov_update.cu",
         "replaces": "shermbot_navigation_tpu/ops/pallas/cov_update.py:70"},
     "circle_moments": {
-        "source": f"{PKG}/csrc/circle_moments.cu",
+        "source": f"{PKG}/csrc/circle_fit.cu",
         "replaces":
             "shermbot_navigation_tpu/ops/pallas/circle_moments.py:73"},
+    # the moments of the TPU kernel and the chain XLA fused behind it
+    # (shermbot_navigation_tpu/ops/circle_fit.py:133, _fit_tail_c)
+    "circle_fit": {
+        "source": f"{PKG}/csrc/circle_fit.cu",
+        "replaces":
+            "shermbot_navigation_tpu/ops/pallas/circle_moments.py:73"},
+    # the chain alone, where the TPU's moments were XLA segment sums
+    "circle_fit_tail": {
+        "source": f"{PKG}/csrc/circle_fit.cu",
+        "replaces": "shermbot_navigation_tpu/ops/circle_fit.py:133"},
 }
+# f32 operations of one cluster's fit tail, counted from csrc/circle_fit.cu:
+# a Jacobi rotation is 75 multiplies, adds and subtracts and three calls
+# of atan2f, cosf and sinf, each counted as 20 (their CUDA math library
+# paths run 15-40 instructions); 48 rotations and the symmetrization a
+# decomposition, two of them, and ~380 for Y, Q, the solve and the circle.
+TAIL_FLOPS = 2 * (48 * (75 + 3 * 20) + 32) + 380
 
 
 def emit(**obj):
@@ -1193,7 +1231,126 @@ def phase_circle_moments(dev, scn):
     if not fits["valid_equal"] or fits["n_over_1e-4"] > FIT_SWITCH_SHARE * \
             fits["n_valid"]:
         fail(f"fits behind the kernel and the plain moments differ: {fits}")
-    return (clusters.points, clusters.counts), max(errs["m16"], oerrs["m16"])
+    sets = {"real": (clusters.points, clusters.counts, clusters.valid),
+            "edge_counts": (pts, cnt, (cnt >= 3) & (torch.arange(
+                C, device=dev) % 11 != 5)),
+            "odd": (opts, ocnt, ocnt >= 3)}
+    return ((clusters.points, clusters.counts),
+            max(errs["m16"], oerrs["m16"]), scan, sets)
+
+
+def same_bits(g, w):
+    """Elementwise: equal bit for bit (any NaN equals any NaN)."""
+    if not g.is_floating_point():
+        return g == w
+    return (g.view(torch.int32) == w.view(torch.int32)) | (
+        torch.isnan(g) & torch.isnan(w))
+
+
+def first_difference(got, want):
+    """The first cluster (flat index) where the fits ``(center, radius,
+    ok)`` differ in any bit, or None."""
+    C = got[2].numel()
+    same = torch.ones(C, dtype=torch.bool, device=got[2].device)
+    for g, w in zip(got, want):
+        same &= same_bits(g, w).reshape(C, -1).all(-1)
+    bad = torch.nonzero(~same)
+    return None if bad.numel() == 0 else int(bad[0])
+
+
+def diagnose(c, m16, cent, zbar, cnt, valid):
+    """Where cluster ``c``'s tail parts from the plain version: the
+    kernel's trace (``circle_fit.trace``) against the plain chain's on the
+    card, op by op, and the branch each took."""
+    m16, cent = m16.reshape(-1, 16), cent.reshape(-1, 2)
+    zbar, cnt, valid = zbar.reshape(-1), cnt.reshape(-1), valid.reshape(-1)
+    names = cfk.trace_names()
+    trace = []
+    cfk._fit_tail_c([m16[c:c + 1, k] for k in range(16)], cent[c:c + 1, 0],
+                    cent[c:c + 1, 1], zbar[c:c + 1], cnt[c:c + 1],
+                    valid[c:c + 1], trace=trace)
+    plain = torch.cat([v.reshape(1).float() for _, v in trace])
+    got = cfk.trace(m16[c], cent[c, 0], cent[c, 1], zbar[c],
+                    bool(valid[c]) and int(cnt[c]) >= 4)
+    differ = torch.nonzero(~same_bits(got, plain))
+    i = int(differ[0]) if differ.numel() else None
+    rank = names.index("rank_deficient")
+    return {"cluster": c, "count": int(cnt[c]),
+            "first_op": None if i is None else names[i],
+            "kernel_value": None if i is None else float(got[i]),
+            "plain_value": None if i is None else float(plain[i]),
+            "kernel_rank_deficient": bool(got[rank]),
+            "plain_rank_deficient": bool(plain[rank])}
+
+
+def phase_circle_fit(dev, scn, scan, sets):
+    """The whole-fit kernel and the tail kernel against their plain
+    versions on the card, bit for bit (see the module docstring, phase
+    12)."""
+    out, bad = {}, []
+    for name, (pts, cnt, valid) in sets.items():
+        got = cfk.circle_fit_raw(pts, cnt, valid, use_kernel=True)
+        mom = cmk.circle_moments_raw(pts, cnt, use_kernel=True)
+        torch.cuda.synchronize()
+        plain_mom = cmk.circle_moments_raw(pts, cnt, use_kernel=False)
+        errs, ratio, ok = moment_errors(got[3:], plain_mom)
+        m16, cent, zbar = got[3:]
+        own = cfk._fit_tail_c([m16[..., k] for k in range(16)],
+                              cent[..., 0], cent[..., 1], zbar, cnt, valid)
+        route = cfk._fit_tail_c([mom[0][..., k] for k in range(16)],
+                                mom[1][..., 0], mom[1][..., 1], mom[2], cnt,
+                                valid)
+        diff_own = first_difference(got[:3], own)
+        diff_route = first_difference(got[:3], route)
+        out[name] = {
+            "C": got[2].numel(), "P": pts.shape[-2],
+            "moments_max_abs_err": errs, "worst_ratio_to_bound": ratio,
+            "moments_equal_moment_kernel": all(
+                bool(same_bits(a, b).all()) for a, b in zip(got[3:], mom)),
+            "first_difference_vs_plain_chain": diff_own,
+            "first_difference_vs_moment_kernel_route": diff_route,
+            "n_ok": int(got[2].sum()),
+            "max_abs_err": max(float((a.double() - b.double()).abs()
+                                     .nan_to_num(0.0).max())
+                               for a, b in zip(got[:2], own[:2]))}
+        if not (ok and out[name]["moments_equal_moment_kernel"]):
+            bad.append(f"{name}: moments")
+        for key, diff in (("plain_chain", diff_own),
+                          ("moment_kernel_route", diff_route)):
+            if diff is not None:
+                out[name][f"diagnosis_vs_{key}"] = diagnose(
+                    diff, m16, cent, zbar, cnt, valid)
+                bad.append(f"{name}: fit vs {key}")
+
+    params = scn.world_params(device=dev)
+    tail_in = landmark_detection._segment_fit_inputs(
+        scan, params.scan_min, params.scan_max, C3, P3)[:6]
+    got = cfk.fit_tail(*tail_in, use_kernel=True)
+    torch.cuda.synchronize()
+    want = cfk.fit_tail(*tail_in, use_kernel=False)
+    diff = first_difference(got, want)
+    out["tail_on_path_a_moments"] = {
+        "C": got[2].numel(), "n_ok": int(got[2].sum()),
+        "first_difference_vs_plain_chain": diff,
+        "max_abs_err": max(float((a.double() - b.double()).abs()
+                                 .nan_to_num(0.0).max())
+                           for a, b in zip(got[:2], want[:2]))}
+    if diff is not None:
+        mom, cx, cy, zbar, cnt, valid = tail_in
+        m16 = torch.stack(cfk.components(mom), -1)
+        out["tail_on_path_a_moments"]["diagnosis"] = diagnose(
+            diff, m16, torch.stack([cx, cy], -1), zbar, cnt, valid)
+        bad.append("tail on path A's moments")
+    emit(phase="circle_fit", **out, rtol=MOM_RTOL, atol=MOM_ATOL,
+         centroid_atol=CENT_ATOL,
+         note="fits must equal the plain chain bit for bit; "
+              "first_difference: flat index of the first cluster that "
+              "differs (null: none)")
+    if bad:
+        fail(f"circle_fit / circle_fit_tail differ from their plain "
+             f"versions: {bad}")
+    return (max(out[name]["max_abs_err"] for name in sets),
+            out["tail_on_path_a_moments"]["max_abs_err"])
 
 
 def config3_noise(scn, dev, gslip, T, seed=11):
@@ -1218,8 +1375,15 @@ def world_ate(outs):
 
 def reset_counters():
     for fn in (gu.fused_grid_update, sq.deferred_seq_scan,
-               cu.fused_kalman_update, cmk.circle_moments_raw):
+               cu.fused_kalman_update, cmk.circle_moments_raw,
+               cfk.circle_fit_raw, cfk.fit_tail):
         fn.launches = 0
+
+
+def fit_launches():
+    return {"circle_fit": cfk.circle_fit_raw.launches,
+            "circle_fit_tail": cfk.fit_tail.launches,
+            "circle_moments": cmk.circle_moments_raw.launches}
 
 
 def phase_config3(dev, scn):
@@ -1246,7 +1410,7 @@ def phase_config3(dev, scn):
                                            on_tick=keep)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = cmk.circle_moments_raw.launches
+    launches = fit_launches()
     del noise
 
     finite = all(bool(torch.isfinite(x).all()) for x in outs
@@ -1291,7 +1455,7 @@ def phase_config3(dev, scn):
     last_seen = outs.n_seen[:, -1]
     emit(phase="config3", scenario=scn.name, B=B3, T=T, seconds=seconds,
          ms_per_tick=seconds * 1e3 / T, finite=finite,
-         circle_moments_launches=launches, fixture=fixture,
+         launches=launches, fixture=fixture,
          tol=CONFIG3_TOL,
          all_worlds={"median_ate": float(ate.median()),
                      "diverged_fraction": float((ate > 1.0).double().mean()),
@@ -1305,6 +1469,9 @@ def phase_config3(dev, scn):
               "relative distance of a score to a gate")
     if not finite:
         fail("config 3 produced non-finite values")
+    if launches != {"circle_fit": 0, "circle_fit_tail": T,
+                    "circle_moments": 0}:
+        fail(f"path A launched {launches}, want circle_fit_tail {T}")
     tol = CONFIG3_TOL
     if not fixture["n_detections_equal_early"]:
         fail(f"fixture worlds: detections per tick differ from the JAX run "
@@ -1331,7 +1498,7 @@ def phase_config3(dev, scn):
                  f"the JAX f32 value {golden['ate'][det_world]}")
         if not max(ate_err) <= tol["ate"]:
             fail(f"fixture worlds' ATE off by {ate_err}")
-    return scans, zs_all, valid_all
+    return scans, zs_all, valid_all, launches["circle_fit_tail"]
 
 
 def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
@@ -1357,7 +1524,32 @@ def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
            for t in range(T)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = cmk.circle_moments_raw.launches
+    launches = fit_launches()
+
+    # the tensor-form fit route on every 50th tick's clusters, behind the
+    # moment kernel, held to the whole-fit kernel's fits (phase 12's rule)
+    picked = range(0, T, 50)
+    clusters = [clustering.cluster_scan(scans[t], lo, hi, **kw)
+                for t in picked]
+    reset_counters()
+    torch.cuda.synchronize()
+    tensor_form = [circle_fit.fit_circles(c, componentized=False)
+                   for c in clusters]
+    torch.cuda.synchronize()
+    launches_tf = fit_launches()
+    tf = {"ticks": len(clusters), "valid_mismatches": 0, "n_valid": 0,
+          "n_over_1e-4": 0, "max_abs_err": 0.0}
+    for c, f in zip(clusters, tensor_form):
+        k = circle_fit.fit_circles(c)
+        tf["valid_mismatches"] += int((k.valid != f.valid).sum())
+        both = k.valid & f.valid
+        d = torch.where(both, torch.maximum(
+            (k.center - f.center).abs().amax(-1), (k.radius - f.radius).abs()),
+            torch.zeros_like(k.radius))
+        tf["n_valid"] += int(both.sum())
+        tf["n_over_1e-4"] += int((d > FIT_ATOL).sum())
+        tf["max_abs_err"] = max(tf["max_abs_err"], float(d.max()))
+    del clusters, tensor_form
 
     for t in range(T):
         plain = detect_landmarks(scans[t], lo, hi, segmented=False,
@@ -1382,19 +1574,27 @@ def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
                "n_over_1e-4_tol_1e-2": over[k].tolist()} for k in worst}
     emit(phase="perception_buffered", B=B3, T=T, C=B3 * C3, P=P3,
          seconds=seconds, ms_per_tick=seconds * 1e3 / T,
-         launches={"circle_moments": launches}, detections=n,
+         launches=launches, detections=n,
          mismatches=bad, positions=pos, pos_tol=PERCEPTION_POS_TOL,
          share_over_pos_tol={k: v["n_over_1e-4_tol_1e-2"][1] / max(n, 1)
                              for k, v in pos.items()},
-         switch_share=FIT_SWITCH_SHARE)
-    if launches != T:
-        fail(f"path B launched circle_moments {launches} times, want {T}")
+         switch_share=FIT_SWITCH_SHARE, tensor_form_fit=dict(
+             tf, launches=launches_tf, fit_atol=FIT_ATOL))
+    if launches != {"circle_fit": T, "circle_fit_tail": 0,
+                    "circle_moments": 0}:
+        fail(f"path B launched {launches}, want circle_fit {T}")
     if any(bad.values()):
         fail(f"path B's detections differ: {bad}")
     for k, v in pos.items():
         if v["n_over_1e-4_tol_1e-2"][1] > FIT_SWITCH_SHARE * n:
             fail(f"path B positions {k}: {v} of {n} detections")
-    return launches
+    if launches_tf["circle_moments"] != tf["ticks"]:
+        fail(f"the tensor-form fit launched {launches_tf}, want "
+             f"circle_moments {tf['ticks']}")
+    if tf["valid_mismatches"] or tf["n_over_1e-4"] > \
+            FIT_SWITCH_SHARE * tf["n_valid"]:
+        fail(f"the tensor-form fit differs from the whole-fit kernel: {tf}")
+    return launches["circle_fit"], launches_tf["circle_moments"]
 
 
 def profiled_device_ms(fn, kernel: str, calls: int):
@@ -1537,8 +1737,57 @@ def kernel_bounds(cm_counts):
         # the rows below each count, the counts, 19 floats a cluster out
         "circle_moments": (8 * int(cnt.sum()) + 4 * C + 76 * C,
                            30 * int(cnt.sum())),
+        # the same in, and valid; the moments and the fit out (13 bytes)
+        "circle_fit": (8 * int(cnt.sum()) + 5 * C + 76 * C + 13 * C,
+                       30 * int(cnt.sum()) + TAIL_FLOPS * C),
+        # 10 moments, cx, cy, zbar, count, valid in; the fit out
+        "circle_fit_tail": ((13 * 4 + 4 + 1) * C + 13 * C, TAIL_FLOPS * C),
     }
     return {k: bound_of(*w) for k, w in work.items()}
+
+
+def fit_chain_floor(dev, m16, cent, zbar, ok):
+    """The latency floor of a fit, a measurement: one dependent read of
+    device memory (the scan's probe, one thread block) + the tail's
+    dependent chain (``circle_fit.chain_probe``: one warp, lane l fitting
+    the l-th well-posed cluster of this run, each fit waiting for the
+    last's radius). CUDA events over 20 against 40 fits (2000 against
+    4000 reads)."""
+    idx = torch.nonzero(ok.reshape(-1))[:32, 0]
+    if idx.numel() < 32:
+        fail("fewer than 32 fitted clusters for the chain probe")
+    staged = torch.cat([m16.reshape(-1, 16)[idx], cent.reshape(-1, 2)[idx],
+                        zbar.reshape(-1, 1)[idx]], -1).contiguous()
+    one = cuda_ms(lambda: cfk.chain_probe(staged, 20), 3)
+    two = cuda_ms(lambda: cfk.chain_probe(staged, 40), 3)
+    fit_ns = (two - one) / 20 * 1e6
+    one = cuda_ms(lambda: sq.chain_probe("dependent_read", 1, 32, 2000, dev),
+                  3)
+    two = cuda_ms(lambda: sq.chain_probe("dependent_read", 1, 32, 4000, dev),
+                  3)
+    read_ns = (two - one) / 2000 * 1e6
+    return {"tail_chain_ns": fit_ns, "dependent_read_ns": read_ns,
+            "floor_ms": (fit_ns + read_ns) / 1e6}
+
+
+def profile_perception(scan, lo, hi, calls=4):
+    """Device kernels and busy ms a call of path A's perception stage
+    (``detect_landmarks``, segmented) on config 3's scans, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    detect_landmarks(scan, lo, hi, max_clusters=C3, max_points=P3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            detect_landmarks(scan, lo, hi, max_clusters=C3, max_points=P3)
+        torch.cuda.synchronize()
+    rows = [(ev.count, getattr(ev, "device_time_total",
+                               getattr(ev, "cuda_time_total", 0)))
+            for ev in prof.key_averages()]
+    busy = sum(r[1] for r in rows) / 1e3 / calls
+    return {"calls": calls, "device_kernels_per_call":
+            sum(r[0] for r in rows) / calls,
+            "device_busy_ms_per_call": busy} if busy else None
 
 
 def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
@@ -1624,25 +1873,56 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
     split = {k: statistics.median(v[1:]) * 1e3 / block
              for k, v in stage.items()}
     pts, cnt = cm_ops
-    launch = lambda: cmk.circle_moments_raw(pts, cnt, use_kernel=True)
-    per_call = {"circle_moments": {
-        "ms": cuda_ms(launch, 200),
-        "plain_ms": cuda_ms(lambda: cmk.circle_moments_raw(
-            pts, cnt, use_kernel=False), 20),
-        "device_ms": profiled_device_ms(launch, "circle_moments", 50)}}
+    valid = cnt >= 3
+    lo, hi = params.scan_min, params.scan_max
+    tail_in = landmark_detection._segment_fit_inputs(st["scan"], lo, hi, C3,
+                                                     P3)[:6]
+    calls = {
+        "circle_moments": (
+            lambda: cmk.circle_moments_raw(pts, cnt, use_kernel=True),
+            lambda: cmk.circle_moments_raw(pts, cnt, use_kernel=False),
+            "circle_fit_kernel"),
+        "circle_fit": (
+            lambda: cfk.circle_fit_raw(pts, cnt, valid, use_kernel=True),
+            lambda: cfk.circle_fit_raw(pts, cnt, valid, use_kernel=False),
+            "circle_fit_kernel"),
+        "circle_fit_tail": (
+            lambda: cfk.fit_tail(*tail_in, use_kernel=True),
+            lambda: cfk.fit_tail(*tail_in, use_kernel=False),
+            "circle_fit_tail_kernel")}
+    per_call = {name: {"ms": cuda_ms(fn, 200),
+                       "plain_ms": cuda_ms(plain, 5 if name == "circle_moments"
+                                           else 2, 3),
+                       "device_ms": profiled_device_ms(fn, key, 50)}
+                for name, (fn, plain, key) in calls.items()}
+    bounds = kernel_bounds(cnt)
+    fit = cfk.circle_fit_raw(pts, cnt, valid, use_kernel=True)
+    floor = fit_chain_floor(dev, fit[3], fit[4], fit[5], fit[2])
+    for name in calls:
+        d = per_call[name]["device_ms"]
+        per_call[name].update(
+            bound_ms=bounds[name]["bound_ms"],
+            bound_by=bounds[name]["bound_by"],
+            share_of_bound=bounds[name]["bound_ms"] / d if d else None)
+        if name != "circle_moments":
+            per_call[name]["share_of_latency_floor"] = (
+                floor["floor_ms"] / d if d else None)
     lib = library_ms(grid_ops, cov_ops)
     emit(phase="config3_timing", scenario=scn.name, B=B3,
          profile=profile_config3(dev, scn, 4, per_tick["whole"]),
+         perception_profile=profile_perception(st["scan"], lo, hi),
          ms_per_tick=per_tick, ms_per_tick_min_max=spread,
          world_ticks_per_s=B3 * 1e3 / per_tick["whole"],
-         staged_split_ms=split, ms_per_call=per_call, library_ms=lib,
+         staged_split_ms=split, ms_per_call=per_call, fit_latency_floor=floor,
+         library_ms=lib,
          note="ms per tick: host clock around synchronized blocks of 10 "
               "ticks taken in turns, median of 4 (a first round dropped); "
               "'staged' synchronizes after every stage and 'whole' is "
               "run_scenario_batch_lanes with its set-up; ms per call: "
               "CUDA events over wrapper calls, medians of 5, the clusters "
               "warm in L2 as the caller leaves them; device_ms: the "
-              "kernel alone by torch.profiler; library_ms: torch.baddbmm on the four "
+              "kernel alone by torch.profiler; plain_ms: the plain "
+              "version on the card; library_ms: torch.baddbmm on the four "
               "grid planes, torch.addmm on the covariance")
     return per_call, lib
 
@@ -1910,10 +2190,11 @@ def ptxas_resources(text: str):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             name = m.group(1)
-            short = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)ELi(\d+)E)?",
-                              name)
+            short = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)ELi(\d+)E|"
+                              r"ILb(\d)E)?", name)
             cur = {"kernel": short.group(1) + (
                 f"<{short.group(2)},{short.group(3)}>" if short.group(2)
+                else f"<{short.group(4)}>" if short.group(4)
                 else "") if short else name}
             rows.append(cur)
             continue
@@ -1976,25 +2257,32 @@ def main() -> int:
     del eng, plain, dense, full, full_args
 
     scn = get_scenario("lidar20_full")
-    cm_ops, cm_err = phase_circle_moments(dev, scn)
-    scans, zs_all, valid_all = phase_config3(dev, scn)
-    cm_launches = phase_perception_buffered(dev, scn, scans, zs_all,
-                                            valid_all)
+    cm_ops, cm_err, scan, sets = phase_circle_moments(dev, scn)
+    fit_err, tail_err = phase_circle_fit(dev, scn, scan, sets)
+    del scan, sets
+    scans, zs_all, valid_all, tail_launches = phase_config3(dev, scn)
+    fit_launches_b, cm_launches = phase_perception_buffered(
+        dev, scn, scans, zs_all, valid_all)
     del scans, zs_all, valid_all
     cm_call, lib = phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops)
     per_call.update(cm_call)
     phase_kernel_scaling(dev)
 
     launches = dict(launches, seq_scan_unknown=unk_launches["seq_scan"],
-                    cov_update=dense_launches, circle_moments=cm_launches)
+                    cov_update=dense_launches, circle_moments=cm_launches,
+                    circle_fit=fit_launches_b, circle_fit_tail=tail_launches)
     errs = {"grid_update": grid_err, "seq_scan": scan_err,
             "seq_scan_unknown": unk_err, "cov_update": cov_err,
-            "circle_moments": cm_err}
+            "circle_moments": cm_err, "circle_fit": fit_err,
+            "circle_fit_tail": tail_err}
     paths = {"grid_update": "serving known", "seq_scan": "serving known",
              "seq_scan_unknown": "serving unknown",
              "cov_update": "dense pallas_update='on'",
-             "circle_moments": "config 3's scans through buffered "
-                               "perception"}
+             "circle_moments": "the tensor-form fit of config 3's "
+                               "clusters, every 50th tick",
+             "circle_fit": "config 3's scans through buffered perception "
+                           "(path B)",
+             "circle_fit_tail": "config 3's segmented perception (path A)"}
     bounds = kernel_bounds(cm_ops[1])
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"], launches=launches[k],

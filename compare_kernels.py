@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the serving tick's two kernels (seq_scan, grid_update) of this
 checkout against those of another checkout of the port, on one CUDA card,
-in turns.
+in turns; or, with ``--config3``, config 3's tick.
 
     git archive <commit> | tar -x -C <dir>        # the other checkout
     python3 compare_kernels.py --other <dir> [--sizes 2048,8192,16384]
+    python3 compare_kernels.py --other <dir> --config3
 
 Each turn is a fresh process that imports the port, and the two timing
 helpers of ``chip_smoke.py`` (``cuda_ms``, ``profiled_device_ms``), from
@@ -28,6 +29,14 @@ falls on both alike. Without ``--other`` only this checkout is timed
 wrappers' signatures (``deferred_seq_scan``, ``fused_grid_update``) and
 those two helpers are all a checkout has to share with this script. It
 imports nothing of JAX.
+
+``--config3`` runs, in each turn, the checkout's own ``chip_smoke.py``
+phase 15 (``phase_config3_timing``: config 3 at B=1024 worlds, ms per tick
+whole and by stage, world x ticks / s, device kernels a tick and the
+device's idle share by ``torch.profiler``, the perception kernels per
+call) on the clusters of a real batch of scans (``real_scans``, then
+``clustering.cluster_scan``) and the operands of its phases 3 and 7; the
+summary gives the medians of each side.
 """
 
 from __future__ import annotations
@@ -123,15 +132,78 @@ def worker(root: str, sizes):
     print(json.dumps(out), flush=True)
 
 
+def worker_config3(root: str):
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    import chip_smoke as cs          # the timed checkout's own phase 15
+    from shermbot_navigation_tpu_torch.ops import clustering
+    from shermbot_navigation_tpu_torch.ops.kernels import _build
+    from shermbot_navigation_tpu_torch.pipeline.config import get_scenario
+
+    dev = torch.device("cuda", 0)
+    _build.build()
+    scn = get_scenario("lidar20_full")
+    params = scn.world_params(device=dev)
+    cl = clustering.cluster_scan(cs.real_scans(dev, scn), params.scan_min,
+                                 params.scan_max, max_clusters=cs.C3,
+                                 max_points=cs.P3)
+    cm_ops = (cl.points.reshape(-1, cs.P3, 2), cl.counts.reshape(-1))
+    grid_ops = cs.grid_operands(np.random.default_rng(0), dev)
+    lines = []
+    cs.emit = lambda **obj: lines.append(obj)
+    cov_ops, _ = cs.phase_cov(dev)
+    cs.phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops)
+    row = next(o for o in lines if o.get("phase") == "config3_timing")
+    print(json.dumps({"root": root, "config3": row,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def summary_config3(turns, this, other):
+    def med(root, pick):
+        vals = [v for v in (pick(t["config3"]) for t in turns
+                            if t["root"] == root) if v is not None]
+        return statistics.median(vals) if vals else None
+
+    prof = lambda key: lambda r: (r.get("profile") or {}).get(key)
+    out = {}
+    for label, root in (("other", other), ("this", this)):
+        out[label] = {
+            "ms_per_tick_whole": med(root, lambda r: r["ms_per_tick"]
+                                     ["whole"]),
+            "ms_per_tick_staged": med(root, lambda r: r["ms_per_tick"]
+                                      ["staged"]),
+            "ms_per_tick_path_b": med(root, lambda r: r["ms_per_tick"]
+                                      ["perception_buffered"]),
+            "world_ticks_per_s": med(root, lambda r: r["world_ticks_per_s"]),
+            "staged_split_ms": {k: med(root, lambda r, k=k: r[
+                "staged_split_ms"][k]) for k in ("noise", "sim",
+                                                 "perception", "filter")},
+            "device_kernels_per_tick": med(root, prof(
+                "device_kernels_per_tick")),
+            "device_busy_ms_per_tick": med(root, prof(
+                "device_busy_ms_per_tick")),
+            "device_idle_share": med(root, prof("device_idle_share")),
+            "perception_kernels_per_call": med(root, lambda r: (r.get(
+                "perception_profile") or {}).get("device_kernels_per_call"))}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--sizes", default="2048,8192,16384")
+    ap.add_argument("--config3", action="store_true",
+                    help="time config 3's tick instead of the serving "
+                         "kernels")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args()
     sizes = [int(s) for s in a.sizes.split(",")]
     if a.worker:
-        worker(a.worker, sizes)
+        if a.config3:
+            worker_config3(a.worker)
+        else:
+            worker(a.worker, sizes)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -147,13 +219,19 @@ def main() -> int:
     for root in (other, this, this, other):
         run = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker", root,
-             "--sizes", a.sizes],
+             "--sizes", a.sizes] + (["--config3"] if a.config3 else []),
             capture_output=True, text=True, cwd=root)
         if run.returncode != 0:
             print(run.stdout, run.stderr, file=sys.stderr)
             return 1
         turns.append(json.loads(run.stdout.strip().splitlines()[-1]))
         print(json.dumps({"card": card, **turns[-1]}), flush=True)
+
+    if a.config3:
+        print(json.dumps({"summary": {
+            "card": card, "this": this, "other": other,
+            "config3": summary_config3(turns, this, other)}}), flush=True)
+        return 0
 
     def med(root, pick):
         vals = [pick(t) for t in turns if t["root"] == root]

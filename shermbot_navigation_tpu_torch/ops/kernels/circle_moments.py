@@ -12,14 +12,18 @@ For each cluster of ``P`` padded points with ``count`` valid ones::
 the full count): the sums then run over all ``P`` rows and the divisions
 use the full count.
 
-On the card it is ``csrc/circle_moments.cu``, which replaces the TPU kernel
+On the card it is the moment-only entry of ``csrc/circle_fit.cu`` (the
+fit kernel with its tail stage switched off), which replaces the TPU kernel
 ``circle_moments_raw`` (``ops/pallas/circle_moments.py``). It is bound by
 device-memory bandwidth in name (one read of the points, 8.4 MB at
 C=16384, P=64; 19 floats written a cluster) and by the launch in fact: the
 bound is a few microseconds. One warp per cluster, a float2 load per point,
 shuffle reductions; any ``C >= 1`` and ``P >= 1`` (the TPU kernel's
 ``C % 8`` tile gate was lowering only). :func:`reference_circle_moments`
-is the plain version.
+is the plain version. The perception paths fit through
+``ops/kernels/circle_fit``, whose whole-fit entry computes these same
+moments on the way; this entry serves the tensor-form fit
+(``fit_circles(componentized=False)``).
 """
 
 from __future__ import annotations

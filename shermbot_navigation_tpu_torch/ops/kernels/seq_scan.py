@@ -39,6 +39,7 @@ import torch
 
 from . import checked_operands, require, wants_kernel
 from ._build import check, library, stream_handle
+from ...device import resolve
 from ...models.ekf_slam import _inv2x2
 from ...ops import se2
 from ...parallel.blocked_ekf import _associate_comp, _h5_coeffs
@@ -445,7 +446,7 @@ def chain_probe(mode: str, cluster: int, threads: int, iters: int,
     update's replicated scalar arithmetic alone, the kernel's own
     functions, in every thread). The caller times it with CUDA events;
     card only."""
-    device = torch.device(device)
+    device = resolve(device)
     require(device.type == "cuda", "seq_scan", "the probe runs on the card")
     # 64 MB of indices (more than L2 holds), a fixed odd-stride permutation
     words = 1 << 24

@@ -24,9 +24,10 @@ from typing import NamedTuple
 import torch
 
 from . import se2
-from .circle_fit import _fit_tail_c, fit_circles
+from .circle_fit import fit_circles
 from .clustering import (SPLIT_THRESHOLD, _scan_membership, classify_clusters,
                          cluster_scan)
+from .kernels import circle_fit as cfk
 
 
 class Detections(NamedTuple):
@@ -46,18 +47,14 @@ def _compact(center, ok):
                       valid=torch.gather(ok, -1, order))
 
 
-def _detect_segmented(ranges, min_range, max_range, max_clusters: int,
-                      max_points: int, max_radius: float,
-                      std_threshold_deg: float = 10.0,
-                      margins: dict | None = None) -> Detections:
-    """The whole perception stage as SEGMENT REDUCTIONS over rays: no
-    ``(C, P, 2)`` point buffer; the quantities the buffered path reduces
-    from the buffer (endpoints, inscribed angles, centroid, moments) come
-    straight from per-ray tensors through ``(C, n)`` one-hot products
-    feeding the componentized fit tail. Semantics are the buffered path's,
-    including the wraparound append of ray n-1 to cluster 0 (ref
-    :169-174), the ``max_points`` capacity drop, and the
-    divide-by-full-count centroid."""
+def _segment_fit_inputs(ranges, min_range, max_range, max_clusters: int,
+                        max_points: int, std_threshold_deg: float = 10.0,
+                        margins: dict | None = None):
+    """The segmented path up to its fit: ``(moments (..., C, 10), cx, cy,
+    zbar, count, valid, is_circle)``, the moments the 10 distinct sums
+    (zz, zx, zy, z, xx, xy, x, yy, y, n) as columns of the one segment-sum
+    product that also holds the angle deviations (a strided view, which
+    the tail kernel reads in place)."""
     n = ranges.shape[-1]
     dt = ranges.dtype
     dev = ranges.device
@@ -131,9 +128,10 @@ def _detect_segmented(ranges, min_range, max_range, max_clusters: int,
     xc = x - bcast(cx)
     yc = y - bcast(cy)
     z = xc * xc + yc * yc
-    (s_dev2, szz, szx, szy, sz, sxx, sxy, sxc, syy, syc, sn) = seg(
+    sums = torch.matmul(Wc, torch.stack(
         [dev2, z * z, z * xc, z * yc, z, xc * xc, xc * yc, xc,
-         yc * yc, yc, torch.ones_like(x)])
+         yc * yc, yc, torch.ones_like(x)], dim=-1))       # (..., C, 11)
+    s_dev2, sz = sums[..., 0], sums[..., 4]
 
     std = torch.sqrt(s_dev2 / cnt_i)
     real = valid & (count_final >= 3)
@@ -142,14 +140,28 @@ def _detect_segmented(ranges, min_range, max_range, max_clusters: int,
         margins["std"] = torch.where(
             real, torch.abs(std - std_threshold_deg), inf).min()
     is_circle = real & (std < std_threshold_deg)
-
-    mc = [szz, szx, szy, sz,
-          szx, sxx, sxy, sxc,
-          szy, sxy, syy, syc,
-          sz, sxc, syc, sn]
     zbar = sz / cnt_m
-    center, radius, okf = _fit_tail_c(mc, cx, cy, zbar, count_final, valid)
+    return sums[..., 1:], cx, cy, zbar, count_final, valid, is_circle
 
+
+def _detect_segmented(ranges, min_range, max_range, max_clusters: int,
+                      max_points: int, max_radius: float,
+                      std_threshold_deg: float = 10.0,
+                      margins: dict | None = None,
+                      use_kernel: bool | None = None) -> Detections:
+    """The whole perception stage as SEGMENT REDUCTIONS over rays: no
+    ``(C, P, 2)`` point buffer; the quantities the buffered path reduces
+    from the buffer (endpoints, inscribed angles, centroid, moments) come
+    straight from per-ray tensors through ``(C, n)`` one-hot products
+    feeding the componentized fit tail (``ops/kernels/circle_fit.fit_tail``,
+    ``use_kernel`` as there). Semantics are the buffered path's, including
+    the wraparound append of ray n-1 to cluster 0 (ref :169-174), the
+    ``max_points`` capacity drop, and the divide-by-full-count centroid."""
+    mom, cx, cy, zbar, count, valid, is_circle = _segment_fit_inputs(
+        ranges, min_range, max_range, max_clusters, max_points,
+        std_threshold_deg, margins)
+    center, radius, okf = cfk.fit_tail(mom, cx, cy, zbar, count, valid,
+                                       use_kernel=use_kernel)
     ok = is_circle & okf & (radius <= max_radius)
     return _compact(center, ok)
 
@@ -163,16 +175,18 @@ def detect_landmarks(ranges, min_range, max_range,
     """Full perception stage for scans ``ranges (..., n)``.
 
     ``segmented=None`` -> True: the segment-reduction path (no point
-    buffer). ``segmented=False`` is the buffered path (``cluster_scan`` ->
+    buffer), whose fit is the tail kernel of ``ops/kernels/circle_fit``.
+    ``segmented=False`` is the buffered path (``cluster_scan`` ->
     ``classify_clusters`` -> ``fit_circles``): the parity oracle, and the
-    path for users who need the ``Clusters`` buffer itself; its moment
-    front end is ``ops/kernels/circle_moments`` (``use_kernel`` as there).
-    ``margins`` (a dict, diagnostics) receives the smallest distances of a
-    split decision and a circle decision to their thresholds."""
+    path for users who need the ``Clusters`` buffer itself; its fit is
+    that module's whole-fit kernel. ``use_kernel`` routes either as the
+    package rule says (``ops/kernels/__init__.py``). ``margins`` (a dict,
+    diagnostics) receives the smallest distances of a split decision and a
+    circle decision to their thresholds."""
     if segmented is None or segmented:
         return _detect_segmented(ranges, min_range, max_range,
                                  max_clusters, max_points, max_radius,
-                                 margins=margins)
+                                 margins=margins, use_kernel=use_kernel)
     clusters = cluster_scan(ranges, min_range, max_range,
                             max_clusters=max_clusters, max_points=max_points,
                             margins=margins)

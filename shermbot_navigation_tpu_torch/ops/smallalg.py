@@ -116,7 +116,7 @@ _PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 _SORT_NET = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
 
 
-def eigh4_jacobi_c(A_comps, sweeps: int = 8):
+def eigh4_jacobi_c(A_comps, sweeps: int = 8, trace=None):
     """Fully-componentized symmetric 4x4 eigendecomposition (cyclic Jacobi,
     fixed sweep count, branchless).
 
@@ -129,7 +129,9 @@ def eigh4_jacobi_c(A_comps, sweeps: int = 8):
     the pairs (0,1) (0,2) (0,3) (1,2) (1,3) (2,3); ``theta = 0.5
     atan2(2 A_pq, A_qq - A_pp)``; rows then columns; the 5-comparator sort):
     it decides which eigenvector a near-degenerate fit picks. The JAX
-    ``lax.scan`` over sweeps is a Python loop here.
+    ``lax.scan`` over sweeps is a Python loop here. ``trace`` (anything
+    with ``append``) receives ``(name, tensor)`` for every rotation's
+    angle, cosine and sine, then the sorted eigenvalues and vectors.
     """
     A = [[0.5 * (A_comps[i * 4 + j] + A_comps[j * 4 + i]) for j in range(4)]
          for i in range(4)]
@@ -137,11 +139,14 @@ def eigh4_jacobi_c(A_comps, sweeps: int = 8):
     zero = torch.zeros_like(A[0][0])
     V = [[one if i == j else zero for j in range(4)] for i in range(4)]
 
-    for _ in range(sweeps):
+    for sweep in range(sweeps):
         for (p, q) in _PAIRS:
             theta = 0.5 * torch.atan2(2.0 * A[p][q], A[q][q] - A[p][p])
             c = torch.cos(theta)
             s = torch.sin(theta)
+            if trace is not None:
+                for name, v in (("theta", theta), ("c", c), ("s", s)):
+                    trace.append((f"sweep{sweep}({p},{q}).{name}", v))
             # B = G^T A (rows p, q), then A' = B G (cols p, q); V' = V G.
             # G = I except G[pp]=G[qq]=c, G[pq]=s, G[qp]=-s.
             Bp = [c * A[p][k] - s * A[q][k] for k in range(4)]
@@ -165,6 +170,12 @@ def eigh4_jacobi_c(A_comps, sweeps: int = 8):
         for i in range(4):
             V[i][k], V[i][l] = (torch.where(take, V[i][l], V[i][k]),
                                 torch.where(take, V[i][k], V[i][l]))
+    if trace is not None:
+        for i in range(4):
+            trace.append((f"lam[{i}]", lam[i]))
+        for i in range(4):
+            for j in range(4):
+                trace.append((f"V[{i}][{j}]", V[i][j]))
     return lam, V
 
 

@@ -236,7 +236,7 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
     from ..ops.kernels.grid_update import fused_grid_update
     from ..ops.kernels.seq_scan import deferred_seq_scan
 
-    device = torch.device(device)
+    device = resolve(device)
     N = config.num_landmarks
     M = max_meas
 
@@ -245,7 +245,7 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
         if state.mean_r.shape[0] != 1:
             raise ValueError(f"the deferred step runs batch 1, got batch "
                              f"{state.mean_r.shape[0]}")
-        if state.cov_mm.device != device:
+        if resolve(state.cov_mm.device) != device:
             raise ValueError(f"state on {state.cov_mm.device}, step built "
                              f"for {device}")
         if tuple(zs.shape) != (1, M, 2):

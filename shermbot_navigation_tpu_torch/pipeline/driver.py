@@ -172,7 +172,7 @@ class _NoiseSource:
 
     def __init__(self, scn, noise, batch, dtype, device):
         if isinstance(noise, torch.Generator):
-            if noise.device != device:
+            if resolve(noise.device) != resolve(device):
                 raise ValueError(f"generator on {noise.device}, run on "
                                  f"{device}")
             self._draw = lambda t: draw_noise(scn, noise, batch, dtype)

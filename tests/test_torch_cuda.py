@@ -14,7 +14,11 @@ Kalman update differs from the plain version's two matmuls by the order
 of a 2-term sum (atol 1e-5 for O(1) operands), and with ``apply`` false
 it is an exact copy; the circle moments are sums of <= P products of O(1)
 terms taken in another order (rtol 1e-5, atol 1e-5; the count entry is
-exact). At N=2048 and N=8192 the scan is held to 1e-4 of each output's
+exact); the circle fit's two entries must give their plain versions'
+bits, centre, radius and ok (the plain version's every elementwise
+operation is one rounded operation of the kernel, and the CUDA math
+library's atan2f, cosf and sinf serve both). At N=2048 and N=8192 the scan
+is held to 1e-4 of each output's
 scale (the planes' f32 asymmetry, amplified by the gain; ``chip_smoke.py``
 states the same bound), discrete outputs exactly; across cluster sizes and
 launch plans every output must be bit-equal.
@@ -29,12 +33,14 @@ from shermbot_navigation_tpu_torch.models import ekf_slam
 from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
 from shermbot_navigation_tpu_torch.ops import circle_fit, landmark_detection
 from shermbot_navigation_tpu_torch.ops.clustering import Clusters
+from shermbot_navigation_tpu_torch.ops.kernels import circle_fit as cfk
 from shermbot_navigation_tpu_torch.ops.kernels import circle_moments as tcm
 from shermbot_navigation_tpu_torch.ops.kernels import cov_update as tcu
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as tgu
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as tsq
 from shermbot_navigation_tpu_torch.parallel import bigmap
-from shermbot_navigation_tpu_torch.pipeline import serving
+from shermbot_navigation_tpu_torch.pipeline import driver, serving
+from shermbot_navigation_tpu_torch.pipeline.config import get_scenario
 
 pytestmark = pytest.mark.requires_cuda
 NAMES = ("mean_r", "mm2", "cov_rr", "rm6", "diag4", "seen", "n_seen", "Kb",
@@ -427,11 +433,13 @@ def test_circle_moments_kernel_raises_on_f64(dev):
 
 
 def test_fit_circles_and_buffered_detection_launch_the_kernel(dev):
-    """``fit_circles`` on CUDA f32 clusters goes through the kernel (one
-    launch) and agrees with the plain-moments route: ``valid`` equal,
-    centre and radius within 1e-4 (noisy arcs, so the moment matrices are
-    well away from the fit's rank-deficiency switch); so does the buffered
-    ``detect_landmarks`` on a scan of three tubes."""
+    """``fit_circles`` on CUDA f32 clusters goes through the whole-fit
+    kernel (one launch of ``circle_fit``) and agrees with the plain route:
+    ``valid`` equal, centre and radius within 1e-4 (noisy arcs, so the
+    moment matrices are well away from the fit's rank-deficiency switch;
+    the plain route sums its moments in another order); so does the
+    buffered ``detect_landmarks`` on a scan of three tubes, against the
+    segmented one, whose fit is one launch of the tail kernel."""
     rng = np.random.default_rng(2)
     C, P = 12, 64
     cnt = rng.integers(0, 40, C)
@@ -442,9 +450,9 @@ def test_fit_circles_and_buffered_detection_launch_the_kernel(dev):
     cl = Clusters(points=torch.from_numpy(pts.astype(np.float32)).to(dev),
                   counts=torch.from_numpy(cnt.astype(np.int32)).to(dev),
                   valid=torch.from_numpy(cnt >= 3).to(dev))
-    before = tcm.circle_moments_raw.launches
+    before = cfk.circle_fit_raw.launches
     got = circle_fit.fit_circles(cl)
-    assert tcm.circle_moments_raw.launches == before + 1
+    assert cfk.circle_fit_raw.launches == before + 1
     want = circle_fit.fit_circles(cl, use_kernel=False)
     assert torch.equal(got.valid, want.valid) and bool(got.valid.any())
     ok = got.valid
@@ -463,12 +471,165 @@ def test_fit_circles_and_buffered_detection_launch_the_kernel(dev):
         ranges = np.minimum(ranges, t)
     ranges += rng.normal(scale=2e-4, size=ranges.shape) * (ranges < 1.5)
     scan = torch.from_numpy(ranges.astype(np.float32)).to(dev)
-    before = tcm.circle_moments_raw.launches
+    before = cfk.circle_fit_raw.launches, cfk.fit_tail.launches
     buf = landmark_detection.detect_landmarks(scan, 0.05, 1.0,
                                               segmented=False)
-    assert tcm.circle_moments_raw.launches == before + 1
     seg = landmark_detection.detect_landmarks(scan, 0.05, 1.0)
+    assert (cfk.circle_fit_raw.launches, cfk.fit_tail.launches) == (
+        before[0] + 1, before[1] + 1)
     assert torch.equal(buf.valid, seg.valid)
     assert buf.valid.sum(-1).tolist() == [3, 3]
     torch.testing.assert_close(buf.positions[buf.valid],
                                seg.positions[seg.valid], rtol=0, atol=1e-3)
+
+
+def _fit_inputs(dev, lead, P, seed):
+    """Clusters for the fit kernels: tube-sized arcs, every third one
+    noise-free (its moment matrix singular up to rounding: the rank
+    switch), counts 0, 1..3, exactly P and above P, NaN at and past each
+    count; ``valid`` false on a tenth of the slots."""
+    rng = np.random.default_rng(seed)
+    C = int(np.prod(lead))
+    th = rng.uniform(0.0, 2.0, (C, P))
+    ctr = rng.uniform(-1.0, 1.0, (C, 1, 2))
+    pts = ctr + 0.0381 * np.stack([np.cos(th), np.sin(th)], -1)
+    pts[np.arange(C) % 3 != 0] += rng.normal(scale=1e-3, size=(P, 2))
+    cnt = rng.integers(4, P + 1, C)
+    cnt[:6] = [0, 1, 2, 3, P, P + 17]
+    pts[np.arange(P)[None, :] >= cnt[:, None]] = np.nan
+    valid = (cnt >= 3) & (rng.uniform(size=C) > 0.1)
+    to = lambda a, t: torch.from_numpy(a.astype(t)).reshape(
+        *lead, *a.shape[1:]).to(dev)
+    return to(pts, np.float32), to(cnt, np.int32), to(valid, bool)
+
+
+def same_bits(g, w):
+    """Elementwise: equal bit for bit (any NaN equals any NaN)."""
+    if not g.is_floating_point():
+        return g == w
+    return (g.view(torch.int32) == w.view(torch.int32)) | (
+        torch.isnan(g) & torch.isnan(w))
+
+
+def _first_difference(got, want):
+    """None when the fits ``(center, radius, ok)`` are equal bit for bit,
+    else a message naming the first differing cluster."""
+    C = got[2].numel()
+    for name, g, w in zip(("center", "radius", "ok"), got, want):
+        same = same_bits(g, w).reshape(C, -1).all(-1)
+        if not bool(same.all()):
+            i = int(torch.nonzero(~same)[0])
+            return f"{name} differs first at cluster {i}"
+    return None
+
+
+@pytest.mark.parametrize("lead,P", [((7, 143), 45), ((64, 16), 64)])
+def test_circle_fit_kernel_is_bit_equal_to_plain(dev, lead, P):
+    """``circle_fit`` (one launch): its moments within the moment kernel's
+    bounds of the plain version's and equal to the moment-only entry's;
+    centre, radius and ok equal bit for bit to the plain chain on its own
+    moments, and so to the route of the moment-only kernel and the plain
+    chain."""
+    pts, cnt, valid = _fit_inputs(dev, lead, P, 11)
+    before = cfk.circle_fit_raw.launches
+    got = cfk.circle_fit_raw(pts, cnt, valid)
+    torch.cuda.synchronize()
+    assert cfk.circle_fit_raw.launches == before + 1
+    assert [tuple(g.shape) for g in got] == [
+        (*lead, 2), lead, lead, (*lead, 16), (*lead, 2), lead]
+    mom = tcm.circle_moments_raw(pts, cnt)
+    for g, w in zip(got[3:], mom):
+        assert torch.equal(g, w)
+    plain = tcm.circle_moments_raw(pts, cnt, use_kernel=False)
+    for g, w in zip(got[3:], plain):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    m16, cent, zbar = got[3:]
+    want = cfk._fit_tail_c([m16[..., k] for k in range(16)], cent[..., 0],
+                           cent[..., 1], zbar, cnt, valid)
+    assert _first_difference(got[:3], want) is None
+    assert bool(got[2].any())
+
+
+def test_fit_tail_kernel_is_bit_equal_to_plain(dev):
+    """``circle_fit_tail`` on the segmented path's own moments (config 3's
+    scans, 64 worlds x 16 slots, the 10 distinct sums read in place at
+    their row stride) and on 16-wide rows: centre, radius and ok equal bit
+    for bit to the plain chain; the segmented detections equal those of
+    the plain route."""
+    scn = get_scenario("lidar20_full")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    last = {}
+    driver.run_scenario_batch_lanes(
+        scn, gen, 64, steps=12, device=dev,
+        on_tick=lambda t, obs, zs, valid: last.update(scan=obs.scan))
+    params = scn.world_params(device=dev)
+    mom, cx, cy, zbar, cnt, valid, _ = landmark_detection._segment_fit_inputs(
+        last["scan"], params.scan_min, params.scan_max, 16, 64)
+    assert tuple(mom.shape) == (64, 16, 10) and not mom.is_contiguous()
+    before = cfk.fit_tail.launches
+    got = cfk.fit_tail(mom, cx, cy, zbar, cnt, valid)
+    torch.cuda.synchronize()
+    assert cfk.fit_tail.launches == before + 1
+    want = cfk.fit_tail(mom, cx, cy, zbar, cnt, valid, use_kernel=False)
+    assert _first_difference(got, want) is None and bool(got[2].any())
+    wide = torch.stack(cfk.components(mom), -1)
+    assert _first_difference(cfk.fit_tail(wide, cx, cy, zbar, cnt, valid),
+                             want) is None
+    a = landmark_detection.detect_landmarks(last["scan"], params.scan_min,
+                                            params.scan_max)
+    b = landmark_detection.detect_landmarks(last["scan"], params.scan_min,
+                                            params.scan_max, use_kernel=False)
+    assert torch.equal(a.valid, b.valid)
+    assert torch.equal(a.positions, b.positions)
+
+
+def test_circle_fit_trace_equals_the_plain_trace(dev):
+    """The trace entry's 369 intermediates of a cluster's tail equal the
+    plain version's on the card, for a noisy arc and an exact one."""
+    pts, cnt, valid = _fit_inputs(dev, (8,), 64, 12)
+    _, _, _, m16, cent, zbar = cfk.circle_fit_raw(pts, cnt, valid)
+    for c in (6, 7):
+        trace = []
+        cfk._fit_tail_c([m16[c:c + 1, k] for k in range(16)],
+                        cent[c:c + 1, 0], cent[c:c + 1, 1], zbar[c:c + 1],
+                        cnt[c:c + 1], valid[c:c + 1], trace=trace)
+        plain = torch.cat([v.reshape(1) for _, v in trace])
+        got = cfk.trace(m16[c], cent[c, 0], cent[c, 1], zbar[c],
+                        bool(valid[c]) and int(cnt[c]) >= 4)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), cfk.trace_names()[int(
+            torch.nonzero(got != plain)[0])]
+
+
+def test_circle_fit_kernels_raise_on_f64(dev):
+    pts = torch.zeros((4, 8, 2), dtype=torch.float64, device=dev)
+    cnt = torch.full((4,), 5, device=dev)
+    valid = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        cfk.circle_fit_raw(pts, cnt, valid)
+    with pytest.raises(ValueError, match="float32"):
+        cfk.fit_tail(torch.zeros((4, 16), dtype=torch.float64, device=dev),
+                     *(torch.zeros(4, device=dev),) * 3, cnt, valid)
+    with pytest.raises(ValueError, match="valid"):
+        cfk.circle_fit_raw(pts.float(), cnt, valid.float())
+
+
+def test_default_device_runs_a_tick_on_the_card(dev):
+    """The repaired fault: naming no device (or a bare "cuda") means
+    ``cuda:<current>``, so the serving engine, ``run_bigmap`` and the lanes
+    driver with a "cuda" generator each run on the card."""
+    cfg = EKFConfig(num_landmarks=64)
+    Q, R = bigmap.noise()
+    eng = serving.ServingEngine(cfg, 8, Q, R)
+    assert eng.device == torch.device("cuda", torch.cuda.current_device())
+    eng.tick([0.0, 0.1, 0.0], [[0.7, 0.5], [0.9, -1.0]], ids=[0, 1])
+    assert eng.n_seen == 2 and eng.state.cov_mm.is_cuda
+    st, _ = bigmap.run_bigmap(N=64, T=2, M=8)
+    assert int(st.n_seen[0]) == 16 and st.mean_r.is_cuda
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    outs = driver.run_scenario_batch_lanes(get_scenario("lidar20_full"), gen,
+                                           2, steps=2)
+    assert outs.slam_pose.is_cuda and bool(torch.isfinite(
+        outs.slam_pose).all())

@@ -151,6 +151,22 @@ def test_generator_runs_are_reproducible_and_checked():
         tdriver.run_scenario_batch_lanes(scn, 0, 2, steps=1, device="cpu")
 
 
+def test_any_cpu_spelling_runs_the_lanes_driver():
+    """``pipeline/driver``'s noise source compares its generator's device
+    with the run's, both resolved: a ``cpu`` generator runs under
+    ``device="cpu:0"``, a generator on another device is refused."""
+    scn = tget("loop5_known")
+    g = torch.Generator(device="cpu")
+    g.manual_seed(3)
+    outs = tdriver.run_scenario_batch_lanes(scn, g, 2, steps=3,
+                                            device="cpu:0")
+    assert outs.slam_pose.shape == (2, 3, 3)
+    assert outs.slam_pose.device.type == "cpu"
+    assert torch.isfinite(outs.slam_pose).all()
+    with pytest.raises(ValueError, match="generator on cpu"):
+        tdriver.run_scenario_batch_lanes(scn, g, 2, steps=1, device="meta")
+
+
 def test_command_twist_and_init_pipeline_match_jax():
     jscn, tscn = jget("lidar20_full"), tget("lidar20_full")
     want = jdriver.command_twist(jscn, jnp.arange(5), jnp.float64)

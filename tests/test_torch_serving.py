@@ -320,11 +320,29 @@ def test_entry_points_default_to_the_card_not_the_cpu():
             call()
 
 
+@pytest.mark.parametrize("spelling", ["cpu:0", torch.device("cpu", 0)])
+def test_any_cpu_spelling_runs_the_serving_tick(spelling):
+    """The CPU mirror of the unindexed-card fault: a CPU tensor reports
+    ``cpu``, so a step built for ``cpu:0`` once refused its own state on
+    the first tick. Devices are compared resolved: every spelling runs, in
+    the engine and in ``run_bigmap``."""
+    cfg = tekf.EKFConfig(num_landmarks=64)
+    eng = tserving.ServingEngine(cfg, max_meas=8, Q=Q3, R=R2,
+                                 robot_pose=[0.0, 0.0, 0.0], device=spelling)
+    assert eng.device == torch.device("cpu")
+    for _ in range(3):
+        eng.tick([0.0, 0.1, 0.0], [[0.7, 0.5], [0.9, -1.0]], ids=[0, 1])
+    assert eng.n_seen == 2 and torch.isfinite(eng.pose).all()
+    st, _ = tbigmap.run_bigmap(N=64, T=2, M=8, device=spelling)
+    assert int(st.n_seen[0]) == 16 and st.mean_r.device.type == "cpu"
+
+
 def test_port_imports_no_jax():
     code = ("import sys, shermbot_navigation_tpu_torch.pipeline.serving, "
             "shermbot_navigation_tpu_torch.utils.convert, "
             "shermbot_navigation_tpu_torch.ops.kernels.cov_update, "
             "shermbot_navigation_tpu_torch.parallel.bigmap, "
+            "shermbot_navigation_tpu_torch.ops.landmark_detection, "
             "shermbot_navigation_tpu_torch.ops.kernels._build; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
