@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: known- and
-unknown-association serving, the dense EKF engine, and config 3
+unknown-association serving, the dense EKF engine, config 3
 (``lidar20_full``: lidar sim, clustering, circle fit, batch-trailing EKF)
-at B=1024 worlds with the buffered perception path beside it.
+at B=1024 worlds with the buffered perception path beside it, and configs
+1 and 2 (``loop5_known``, ``course12_noisy``: the fake sensor, the bench
+entry's path) on both batched engines, with the batch sweep.
 
     python3 chip_smoke.py
 
@@ -109,6 +111,30 @@ It imports nothing of JAX. Phases, one JSON line each:
    x the barrier + one dependent read of device memory + an update's
    scalar chain), each term timed apart from the kernel by its probe
    kernel; beside it the kernel's own phase clock, a split of its time.
+17. configs12 -- the main path of the port's bench entry
+   (``python -m shermbot_navigation_tpu_torch.bench``), which launches none
+   of the four kernels (every counter is read and must stay 0), f32, 600
+   ticks: (a) config 1 at B=16384 on the lanes engine, every world's ATE
+   within 1e-4 m of ``tests/fixtures/loop5_golden.json``'s JAX f32 ATE
+   and of the C++ ``--deterministic`` ATE (``native/baseline``, built with
+   ``make`` where absent), ``n_seen`` equal to the fixture
+   at every tick, poses within ``CONFIGS12_POSE_TOL``, the ATE spread
+   printed; (b) the same at B=1024 through ``run_scenario_batch`` (the
+   dense engine under ``torch.func.vmap``) against the lanes engine on the
+   same noise; (c) config 2 at B=2048 on the lanes engine, the first 8
+   worlds on ``tests/fixtures/course12_golden.json``'s draws (7 noisy, 1
+   deterministic): ``n_seen`` equal to the fixture at every tick, each
+   fixture world's parting tick (the first tick a pose is off by more than
+   the bound; none before ``CONFIG2_EARLY``) with the smallest relative
+   gate margin just before it, the deterministic world's ATE within 1e-3
+   m; median-world ATE, diverged fraction and median NEES over all worlds
+   (never a pooled RMSE); then ``run_scenario_batch`` on the first 100
+   ticks of the first 256 worlds against the lanes run; (d)
+   ``course12_tuned`` at B=2048: no world may diverge; (e) config 1's
+   batch sweep on the lanes engine from B=256 by 4x past 262144 while
+   world x ticks / s grows by more than 10% and a full run's outputs fit,
+   the saturation point, and ``torch.profiler`` over 4 ticks of each
+   config on each engine: device kernels a tick, busy ms, idle share.
 
 Then the card line as nvidia-smi prints it, the kernels line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -120,6 +146,7 @@ import base64
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -130,6 +157,7 @@ import numpy as np
 import torch
 
 import shermbot_navigation_tpu_torch  # noqa: F401  (pins f32 on the card)
+from shermbot_navigation_tpu_torch import bench
 from shermbot_navigation_tpu_torch.models import ekf_batch, ekf_slam
 from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
 from shermbot_navigation_tpu_torch.ops import circle_fit, clustering
@@ -155,6 +183,8 @@ GOLDEN = FIXTURES / "serving_n2048_golden.json"
 GOLDEN_UNKNOWN = FIXTURES / "serving_unknown_n2048_golden.json"
 GOLDEN_DENSE = FIXTURES / "dense_n2048_golden.json"
 GOLDEN_LIDAR = FIXTURES / "lidar20_golden.json"
+GOLDEN_LOOP5 = FIXTURES / "loop5_golden.json"
+GOLDEN_COURSE12 = FIXTURES / "course12_golden.json"
 N, M, T = 2048, 8, 320
 D_PAD = 4224       # the benchmark's padded dense state: 3+2N up to k*128
 T_DENSE = 32
@@ -322,6 +352,32 @@ CONFIG3_TOL = {"sim_early": 2e-5, "true_pose": 4e-2, "odom_pose": 5e-3,
                "n_detections_share": 0.95, "n_detections_diff": 3,
                "n_seen_final": 3, "deterministic_ate": 1e-3, "ate": 1e-2}
 PERCEPTION_POS_TOL = 1e-3
+
+# Phase 17, configs 1 and 2. Worlds: config 1 at bench.py's batch, its
+# dense engine at B=1024; config 2 and course12_tuned at the batch the
+# JAX package reports them at (BENCH_NOTES.md); the dense engine of
+# config 2 on its first 100 ticks.
+B1, B1_VMAPPED = 16384, 1024
+B2, B2_VMAPPED, T2_VMAPPED = 2048, 256, 100
+# Poses against the JAX f32 run (and the two engines against each other):
+# two f32 implementations part by the rounding of the wheel-angle sums,
+# which XLA fuses (cmd_wheels + u * eta in one rounding) and the port
+# rounds twice. In a noise-free world that error is the same every substep
+# and grows linearly: on the CPU the port's config-1 odometry reaches
+# 5.6e-5 in 600 ticks (its SLAM pose 4.8e-7), and config 2's deterministic
+# world 1e-3 at tick ~360 (its noisy worlds stay within 1e-5). 1e-3 m is
+# the largest bound allowed; parting beyond it is reported, not hidden.
+CONFIGS12_POSE_TOL = 1e-3
+CONFIG1_ATE_TOL = 1e-4         # against the JAX f32 and C++ ATE, every world
+CONFIG2_DET_ATE_TOL = 1e-3     # config 2's deterministic world against JAX
+CONFIG2_EARLY = 300    # no fixture world of config 2 parts before this tick
+PARTING_WINDOW = 10    # ticks before a parting searched for its gate margin
+SWEEP_BATCHES = (256, 1024, 4096, 16384, 65536, 262144)
+SWEEP_TICKS = 20       # timed ticks a sweep point, after 2 warm ticks
+SWEEP_GROWTH = 1.10    # a 4x larger batch must gain this much to go on
+PROFILE_TICKS = 4
+# the (B, T, ...) outputs: three poses, n_seen and NEES, f32/int32
+OUTPUT_BYTES_PER_WORLD_TICK = 4 * (3 * 3 + 2)
 
 KERNELS = {
     "grid_update": {
@@ -1353,24 +1409,23 @@ def phase_circle_fit(dev, scn, scan, sets):
             out["tail_on_path_a_moments"]["max_abs_err"])
 
 
+def noise_sequence(scn, dev, B, T, seed):
+    """A run's noise ``(T, B, ...)`` from a seeded generator."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ticks = [driver.draw_noise(scn, gen, (B,)) for _ in range(T)]
+    return tube_world.TickNoise(*(torch.stack(f) for f in zip(*ticks)))
+
+
 def config3_noise(scn, dev, gslip, T, seed=11):
     """The run's noise sequence ``(T, B3, ...)``: a seeded generator's
     draws, with the slip normals of the first worlds taken from the golden
     fixture (its noisy worlds, then zeros for its deterministic world)."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    ticks = [driver.draw_noise(scn, gen, (B3,)) for _ in range(T)]
-    seq = tube_world.TickNoise(*(torch.stack(f) for f in zip(*ticks)))
+    seq = noise_sequence(scn, dev, B3, T, seed)
     nf = gslip.shape[1]
     seq.slip[:, :nf] = torch.from_numpy(gslip[:T].copy()).to(dev)
     seq.slip[:, nf] = 0.0
     return seq
-
-
-def world_ate(outs):
-    """Per-world RMS position error over the run, (B,) f64."""
-    d = outs.slam_pose[..., 1:].double() - outs.true_pose[..., 1:].double()
-    return torch.sqrt((d * d).sum(-1).mean(-1))
 
 
 def reset_counters():
@@ -1384,6 +1439,13 @@ def fit_launches():
     return {"circle_fit": cfk.circle_fit_raw.launches,
             "circle_fit_tail": cfk.fit_tail.launches,
             "circle_moments": cmk.circle_moments_raw.launches}
+
+
+def kernel_launches():
+    """Every kernel's launch counter (the two scan branches share one)."""
+    return {"grid_update": gu.fused_grid_update.launches,
+            "seq_scan": sq.deferred_seq_scan.launches,
+            "cov_update": cu.fused_kalman_update.launches, **fit_launches()}
 
 
 def phase_config3(dev, scn):
@@ -1433,7 +1495,7 @@ def phase_config3(dev, scn):
         d[..., 0] = se2.normalize_angle(d[..., 0])
         pose_err[f] = float(d.abs().max())
         pose_err_early[f] = float(d[:, :early // ev].abs().max())
-    ate = world_ate(outs)
+    ate = bench.world_ate(outs)
     ate_fix = ate[:nfix].cpu()
     ate_err = (ate_fix - torch.tensor(golden["ate"], dtype=torch.float64)
                ).abs().tolist() if T == golden["T"] else None
@@ -2182,6 +2244,361 @@ def phase_kernel_scaling(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: configs 1 and 2 (the main path of the port's bench entry)
+# ---------------------------------------------------------------------------
+
+def cpp_deterministic_ate(scenario):
+    """ATE of the C++ baseline's ``--deterministic`` run of ``scenario``
+    (the bench entry's ``measure_cpp``, which builds it with ``make`` where
+    absent); None where there is neither the binary nor ``make``."""
+    if not bench.BASELINE_BIN.exists() and shutil.which("make") is None:
+        return None
+    return bench.measure_cpp(scenario, runs=1)["ate"]
+
+
+def pose_errors(outs, want, ticks):
+    """(worlds, ticks) largest |got - want| over the poses in ``want``,
+    heading wrapped; ``want`` maps a pose field to a (worlds, ticks, 3)
+    f64 tensor on the card, taken at the run's ``ticks``."""
+    errs = []
+    for f, w in want.items():
+        d = getattr(outs, f)[:w.shape[0], ticks].double() - w
+        d[..., 0] = se2.normalize_angle(d[..., 0])
+        errs.append(d.abs().amax(-1))
+    return torch.stack(errs).amax(0)
+
+
+def timed_run(run, *args, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = run(*args, **kw)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def all_finite(outs):
+    return all(bool(torch.isfinite(x).all()) for x in outs
+               if x.dtype.is_floating_point)
+
+
+def phase_config1(dev):
+    """Config 1 (``loop5_known``) at B1 worlds on the lanes engine against
+    the JAX golden fixture and the C++ deterministic run."""
+    golden = json.loads(GOLDEN_LOOP5.read_text())
+    scn = get_scenario("loop5_known")
+    T = golden["T"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    reset_counters()
+    outs, seconds = timed_run(driver.run_scenario_batch_lanes, scn, gen, B1,
+                              steps=T, device=dev)
+    launches = kernel_launches()
+    ev = golden["pose_every"]
+    at = torch.arange(ev - 1, T, ev, device=dev)
+    # noise-free: every world of the run is held to the fixture's world 0
+    want = {f: torch.tensor(golden[f][0], dtype=torch.float64,
+                            device=dev)[None].expand(B1, -1, -1)
+            for f in ("true_pose", "odom_pose", "slam_pose")}
+    pose_err = float(pose_errors(outs, want, at).max())
+    g_seen = torch.tensor(golden["n_seen"][0], dtype=torch.int32, device=dev)
+    n_seen_equal = bool((outs.n_seen == g_seen).all())
+    ate = bench.world_ate(outs)
+    g_ate = golden["ate"][0]
+    cpp_ate = cpp_deterministic_ate("loop5_known")
+    ate_err = float((ate - g_ate).abs().max())
+    cpp_err = None if cpp_ate is None else float((ate - cpp_ate).abs().max())
+    emit(phase="configs12_config1", scenario=scn.name, engine="lanes", B=B1,
+         T=T, seconds=seconds, ms_per_tick=seconds * 1e3 / T,
+         world_ticks_per_s=B1 * T / seconds, finite=all_finite(outs),
+         launches=launches, n_seen_equal_every_tick=n_seen_equal,
+         pose_max_abs_err=pose_err, pose_tol=CONFIGS12_POSE_TOL,
+         ate={"min": float(ate.min()), "median": float(ate.median()),
+              "max": float(ate.max()), "spread": float(ate.max() - ate.min())},
+         golden_ate=g_ate, ate_max_abs_err_vs_golden=ate_err,
+         cpp_deterministic_ate=cpp_ate, ate_max_abs_err_vs_cpp=cpp_err,
+         ate_tol=CONFIG1_ATE_TOL,
+         note="config 1 has no noise (every draw is scaled by zero), so "
+              "every world is the fixture's world; its draws come from a "
+              "seeded generator")
+    if not all_finite(outs):
+        fail("config 1 produced non-finite values")
+    if any(launches.values()):
+        fail(f"config 1 launched {launches}: its path has no kernel")
+    if not n_seen_equal:
+        fail("config 1: n_seen differs from the JAX run")
+    if not pose_err <= CONFIGS12_POSE_TOL:
+        fail(f"config 1: poses off the JAX run by {pose_err}")
+    if not ate_err <= CONFIG1_ATE_TOL:
+        fail(f"config 1: a world's ATE is off the JAX f32 ATE {g_ate} by "
+             f"{ate_err}")
+    if cpp_err is not None and not cpp_err <= CONFIG1_ATE_TOL:
+        fail(f"config 1: a world's ATE is off the C++ ATE {cpp_ate} by "
+             f"{cpp_err}")
+    return scn, golden
+
+
+def engines_agree(dense, lanes, tol):
+    """(n_seen equal at every tick, largest pose difference) of two runs
+    of the same worlds on the same noise."""
+    ticks = torch.arange(dense.n_seen.shape[1], device=dense.n_seen.device)
+    want = {f: getattr(lanes, f).double()
+            for f in ("true_pose", "odom_pose", "slam_pose")}
+    err = float(pose_errors(dense, want, ticks).max())
+    return bool(torch.equal(dense.n_seen, lanes.n_seen)), err, err <= tol
+
+
+def phase_config1_vmapped(dev, scn, golden):
+    """Config 1 through ``run_scenario_batch`` (the dense engine under
+    ``torch.func.vmap``) against the lanes engine on the same noise."""
+    T = golden["T"]
+    noise = noise_sequence(scn, dev, B1_VMAPPED, T, seed=22)
+    reset_counters()
+    dense, s_dense = timed_run(driver.run_scenario_batch, scn, noise,
+                               B1_VMAPPED, steps=T, device=dev)
+    launches = kernel_launches()
+    lanes, s_lanes = timed_run(driver.run_scenario_batch_lanes, scn, noise,
+                               B1_VMAPPED, steps=T, device=dev)
+    del noise
+    seen_eq, err, ok = engines_agree(dense, lanes, CONFIGS12_POSE_TOL)
+    ate = bench.world_ate(dense)
+    ate_err = float((ate - golden["ate"][0]).abs().max())
+    emit(phase="configs12_config1_vmapped", scenario=scn.name, B=B1_VMAPPED,
+         T=T, ms_per_tick={"vmapped": s_dense * 1e3 / T,
+                           "lanes": s_lanes * 1e3 / T},
+         world_ticks_per_s={"vmapped": B1_VMAPPED * T / s_dense,
+                            "lanes": B1_VMAPPED * T / s_lanes},
+         finite=all_finite(dense), launches=launches,
+         n_seen_equal_every_tick=seen_eq, pose_max_abs_diff=err,
+         pose_tol=CONFIGS12_POSE_TOL, ate_max_abs_err_vs_golden=ate_err)
+    if not all_finite(dense):
+        fail("run_scenario_batch produced non-finite values")
+    if any(launches.values()):
+        fail(f"run_scenario_batch launched {launches}: no kernel expected")
+    if not (seen_eq and ok):
+        fail(f"run_scenario_batch against the lanes engine: n_seen equal "
+             f"{seen_eq}, poses off by {err}")
+    if not ate_err <= CONFIG1_ATE_TOL:
+        fail(f"run_scenario_batch: ATE off the JAX f32 ATE by {ate_err}")
+
+
+def course12_fixture():
+    golden = json.loads(GOLDEN_COURSE12.read_text())
+    f32 = lambda key, shape: np.frombuffer(
+        base64.b64decode(golden[key]), "<f4").reshape(shape)
+    normals = {k: f32(f"{k}_normals_f32_b64", golden["normals_shape"])
+               for k in ("twist", "slip")}
+    poses = {f: f32(f"{f}_f32_b64", golden["pose_shape"])
+             for f in ("true_pose", "odom_pose", "slam_pose")}
+    return golden, normals, poses
+
+
+def phase_config2(dev):
+    """Config 2 (``course12_noisy``) at B2 worlds on the lanes engine: the
+    first 8 worlds take the fixture's draws (7 noisy, 1 deterministic),
+    the rest a seeded generator's."""
+    golden, normals, poses = course12_fixture()
+    scn = get_scenario("course12_noisy")
+    T, nfix = golden["T"], golden["B"]
+    noise = noise_sequence(scn, dev, B2, T, seed=23)
+    for k in ("twist", "slip"):
+        f = getattr(noise, k)
+        f[:, :nfix - 1] = torch.from_numpy(normals[k].copy()).to(dev)
+        f[:, nfix - 1] = 0.0
+    trace, margins = [], {}
+    reset_counters()
+    outs, seconds = timed_run(driver.run_scenario_batch_lanes, scn, noise, B2,
+                              steps=T, device=dev, margins=margins,
+                              gate_trace=trace)
+    launches = kernel_launches()
+    trace = torch.stack(trace)                                  # (T, B2)
+    want = {f: torch.from_numpy(p.copy()).to(dev, torch.float64)
+            for f, p in poses.items()}
+    ticks = torch.arange(T, device=dev)
+    err = pose_errors(outs, want, ticks).cpu()                  # (nfix, T)
+    g_seen = torch.tensor(golden["n_seen"], dtype=torch.int32)
+    seen_eq = (outs.n_seen[:nfix].cpu() == g_seen).all(-1).tolist()
+    worlds = []
+    for w in range(nfix):
+        over = torch.nonzero(err[w] > CONFIGS12_POSE_TOL)
+        part = int(over[0, 0]) if over.numel() else None
+        row = {"world": w, "n_seen_equal_every_tick": seen_eq[w],
+               "pose_max_abs_err_to_parting": float(
+                   err[w, :part].max()) if part != 0 else None,
+               "parting_tick": part}
+        if part is not None:
+            # each pose's error where the world parts, and the closest gate
+            # decision of the ticks just before it (a tie reads near 0)
+            at = ticks[part:part + 1]
+            row["pose_err_at_parting"] = {
+                f: float(pose_errors(outs, {f: p[:, at]}, at)[w, 0])
+                for f, p in want.items()}
+            lo = max(0, part - PARTING_WINDOW)
+            win = trace[lo:part + 1, w]
+            row["min_gate_margin_window"] = [lo, part]
+            row["min_gate_margin"] = float(win.min())
+            row["min_gate_margin_tick"] = lo + int(win.argmin())
+        worlds.append(row)
+    ate = bench.world_ate(outs)
+    det = nfix - 1
+    det_err = abs(float(ate[det]) - golden["ate"][det])
+    cpp_ate = cpp_deterministic_ate("course12_noisy")
+    det_cpp_err = None if cpp_ate is None else abs(float(ate[det]) - cpp_ate)
+    emit(phase="configs12_config2", scenario=scn.name, engine="lanes", B=B2,
+         T=T, seconds=seconds, ms_per_tick=seconds * 1e3 / T,
+         world_ticks_per_s=B2 * T / seconds, finite=all_finite(outs),
+         launches=launches, fixture_worlds=worlds,
+         fixture_ate=ate[:nfix].tolist(), golden_ate=golden["ate"],
+         deterministic_ate_abs_err=det_err,
+         cpp_deterministic_ate=cpp_ate,
+         deterministic_ate_abs_err_vs_cpp=det_cpp_err,
+         pose_tol=CONFIGS12_POSE_TOL,
+         early_ticks=CONFIG2_EARLY,
+         all_worlds={"median_ate": float(ate.median()),
+                     "diverged_fraction": float((ate > 1.0).double().mean()),
+                     "median_nees": float(outs.nees.median()),
+                     "median_n_seen_final": float(
+                         outs.n_seen[:, -1].float().median())},
+         min_gate_margin=float(margins["gate"]),
+         note="parting: the first tick a pose of a fixture world is off "
+              "the JAX run by more than pose_tol; the gate margin is the "
+              "relative distance of a score to a gate, over the world's "
+              "decisions of the ticks just before it")
+    if not all_finite(outs):
+        fail("config 2 produced non-finite values")
+    if any(launches.values()):
+        fail(f"config 2 launched {launches}: its path has no kernel")
+    if not all(seen_eq):
+        fail(f"config 2: n_seen differs from the JAX run in fixture worlds "
+             f"{[w for w in range(nfix) if not seen_eq[w]]}")
+    early = [r["world"] for r in worlds if r["parting_tick"] is not None
+             and r["parting_tick"] < CONFIG2_EARLY]
+    if early:
+        fail(f"config 2: fixture worlds {early} part from the JAX run "
+             f"before tick {CONFIG2_EARLY}")
+    if not det_err <= CONFIG2_DET_ATE_TOL:
+        fail(f"config 2: the deterministic world's ATE {float(ate[det])} "
+             f"against the JAX f32 {golden['ate'][det]}")
+    return scn, noise, outs
+
+
+def phase_config2_vmapped(dev, scn, noise, lanes):
+    """``run_scenario_batch`` on the first T2_VMAPPED ticks of config 2's
+    first B2_VMAPPED worlds, against the lanes run of phase 17c."""
+    T, B = T2_VMAPPED, B2_VMAPPED
+    part = tube_world.TickNoise(*(f[:T, :B] for f in noise))
+    dense, seconds = timed_run(driver.run_scenario_batch, scn, part, B,
+                               steps=T, device=dev)
+    ref = driver.TickOutput(*(f[:B, :T] for f in lanes))
+    seen_eq, err, ok = engines_agree(dense, ref, CONFIGS12_POSE_TOL)
+    emit(phase="configs12_config2_vmapped", scenario=scn.name, B=B, T=T,
+         ms_per_tick=seconds * 1e3 / T, finite=all_finite(dense),
+         n_seen_equal_every_tick=seen_eq, pose_max_abs_diff=err,
+         pose_tol=CONFIGS12_POSE_TOL)
+    if not (all_finite(dense) and seen_eq and ok):
+        fail(f"config 2 through run_scenario_batch against the lanes run: "
+             f"n_seen equal {seen_eq}, poses off by {err}")
+
+
+def phase_course12_tuned(dev):
+    """``course12_tuned`` (nearest-neighbour gating, wrapped innovations,
+    multiplicative slip) at B2 worlds: no world may diverge."""
+    scn = get_scenario("course12_tuned")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    outs, seconds = timed_run(driver.run_scenario_batch_lanes, scn, gen, B2,
+                              device=dev)
+    ate = bench.world_ate(outs)
+    diverged = int((ate > 1.0).sum())
+    emit(phase="configs12_course12_tuned", B=B2, T=scn.steps,
+         ms_per_tick=seconds * 1e3 / scn.steps, finite=all_finite(outs),
+         median_ate=float(ate.median()),
+         p99_ate=float(torch.quantile(ate, 0.99)), max_ate=float(ate.max()),
+         diverged=diverged, median_nees=float(outs.nees.median()))
+    if not all_finite(outs) or diverged:
+        fail(f"course12_tuned: {diverged} of {B2} worlds diverged")
+
+
+def profile_ticks(run, scn, dev, B, ticks=PROFILE_TICKS):
+    """Unprofiled ms a tick over 3 x ``ticks`` ticks, then device kernels a
+    tick, device busy ms a tick and the device's idle share over ``ticks``
+    profiled ticks (``torch.profiler``, device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    run(scn, gen, B, steps=2, device=dev)
+    _, seconds = timed_run(run, scn, gen, B, steps=3 * ticks, device=dev)
+    ms = seconds * 1e3 / (3 * ticks)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(scn, gen, B, steps=ticks, device=dev)
+        torch.cuda.synchronize()
+    rows = [(ev.count, getattr(ev, "device_time_total",
+                               getattr(ev, "cuda_time_total", 0)))
+            for ev in prof.key_averages()]
+    busy = sum(r[1] for r in rows) / 1e3 / ticks
+    return {"scenario": scn.name, "engine": run.__name__, "B": B,
+            "ms_per_tick": ms,
+            "device_kernels_per_tick": sum(r[0] for r in rows) / ticks,
+            "device_busy_ms_per_tick": busy or None,
+            "device_idle_share": 1.0 - busy / ms if busy else None}
+
+
+def phase_sweep(dev, scn1, scn2):
+    """Config 1's batch sweep on the lanes engine (SWEEP_TICKS ticks a
+    point after 2 warm ticks), continued by 4x while throughput grows by
+    more than SWEEP_GROWTH and the outputs of a full run would take less
+    than half the free device memory; then the profiled ticks of both
+    configs on both engines."""
+    rows, B = [], SWEEP_BATCHES[0]
+    free = torch.cuda.mem_get_info(dev)[0]
+    while True:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(26)
+        driver.run_scenario_batch_lanes(scn1, gen, B, steps=2, device=dev)
+        _, seconds = timed_run(driver.run_scenario_batch_lanes, scn1, gen, B,
+                               steps=SWEEP_TICKS, device=dev)
+        rows.append({"B": B, "ms_per_tick": seconds * 1e3 / SWEEP_TICKS,
+                     "world_ticks_per_s": B * SWEEP_TICKS / seconds})
+        torch.cuda.empty_cache()
+        growing = len(rows) < 2 or (rows[-1]["world_ticks_per_s"]
+                                    > SWEEP_GROWTH
+                                    * rows[-2]["world_ticks_per_s"])
+        fits = 4 * B * scn1.steps * OUTPUT_BYTES_PER_WORLD_TICK < free / 2
+        if not fits or (B >= SWEEP_BATCHES[-1] and not growing):
+            break
+        B *= 4
+    # the card saturates at the smallest batch within SWEEP_GROWTH of the
+    # sweep's best throughput (a host-bound point's ms a tick moves by
+    # 10-40% between runs, so one 4x step is no reliable test)
+    best = max(r["world_ticks_per_s"] for r in rows)
+    for r in rows:
+        r["share_of_best"] = r["world_ticks_per_s"] / best
+    sat = min(r["B"] for r in rows
+              if r["world_ticks_per_s"] * SWEEP_GROWTH >= best)
+    profiles = [profile_ticks(run, scn, dev, B)
+                for scn, B in ((scn1, B1), (scn2, B2))
+                for run in (driver.run_scenario_batch_lanes,
+                            driver.run_scenario_batch)]
+    emit(phase="configs12_sweep", scenario=scn1.name, engine="lanes",
+         ticks_per_point=SWEEP_TICKS, rows=rows, saturates_at_B=sat,
+         growth_threshold=SWEEP_GROWTH, profiles=profiles,
+         note="idle share = 1 - device busy ms a tick / unprofiled ms a "
+              "tick; the ticks run eagerly, one launch an op")
+    return rows, sat, profiles
+
+
+def phase_configs12(dev):
+    """Phase 17: configs 1 and 2, ``course12_tuned`` and the sweep."""
+    scn1, golden1 = phase_config1(dev)
+    phase_config1_vmapped(dev, scn1, golden1)
+    scn2, noise, outs2 = phase_config2(dev)
+    phase_config2_vmapped(dev, scn2, noise, outs2)
+    del noise, outs2
+    torch.cuda.empty_cache()
+    phase_course12_tuned(dev)
+    phase_sweep(dev, scn1, scn2)
+
+
 def ptxas_resources(text: str):
     """Registers, shared memory and spill bytes of every kernel, from
     ``nvcc -Xptxas -v``'s output."""
@@ -2267,6 +2684,8 @@ def main() -> int:
     cm_call, lib = phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops)
     per_call.update(cm_call)
     phase_kernel_scaling(dev)
+    torch.cuda.empty_cache()
+    phase_configs12(dev)
 
     launches = dict(launches, seq_scan_unknown=unk_launches["seq_scan"],
                     cov_update=dense_launches, circle_moments=cm_launches,

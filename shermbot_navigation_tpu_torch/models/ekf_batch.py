@@ -395,9 +395,9 @@ def _slot_hit(N, j):
 def step_measurement(config: EKFConfig, st: BatchState, z, valid, stopped,
                      R, margins: list | None = None):
     """``z`` (B, 2), ``valid``/``stopped`` (B,) bool. ``margins`` (a list,
-    diagnostics) receives the smallest relative distance of a score to a
-    gate over the seen slots of the worlds this measurement acts in, a
-    tensor (inf when there is none)."""
+    diagnostics) receives each world's smallest relative distance of a
+    score to a gate over its seen slots, a (B,) tensor (inf where the
+    measurement does not act or no slot is seen)."""
     res = associate(config, st, z, R)
     act = valid & ~stopped
     if margins is not None:
@@ -406,7 +406,8 @@ def step_measurement(config: EKFConfig, st: BatchState, z, valid, stopped,
             torch.abs(dist - config.match_gate) / config.match_gate,
             torch.abs(dist - config.new_gate) / config.new_gate)
         margins.append(torch.where(st.seen & act[None, :], rel,
-                                   torch.full_like(rel, float("inf"))).min())
+                                   torch.full_like(rel, float("inf")))
+                       .amin(0))
 
     is_new = act & (res.outcome == ASSOC_NEW)
     is_match = act & (res.outcome == ASSOC_MATCH)

@@ -25,6 +25,10 @@ Differences from the JAX module, none of them semantic:
 - ``pallas_update='on'`` runs ``ops/kernels/cov_update`` (the CUDA kernel
   on the card, its plain version on the CPU); ``'auto'`` takes the plain
   rank-2 downdate, as the JAX package's demoted ``'auto'`` does.
+- The engine is written for one world. ``pipeline/driver.run_scenario_batch``
+  runs it over a leading batch with ``torch.func.vmap`` (the JAX driver's
+  ``vmap``): every op here has a batching rule, so no op falls back to a
+  loop over the worlds.
 """
 
 from __future__ import annotations
@@ -435,8 +439,12 @@ def _write_init(cov: torch.Tensor, j, cross, block, sel=None) -> None:
     idx = _slot_index(cov.shape[0], j)
     pick = (lambda new, old: new) if sel is None else (
         lambda new, old: torch.where(sel, new, old))
-    cov.index_copy_(0, idx, pick(cross, cov.index_select(0, idx)))
-    cov.index_copy_(1, idx, pick(cross.T, cov.index_select(1, idx)))
+    # index_put_, not index_copy_: it has a vmap batching rule, so the
+    # batched dense engine writes every world's slot in one launch
+    lane = torch.arange(cov.shape[0], device=cov.device)
+    cov.index_put_((idx,), pick(cross, cov.index_select(0, idx)))
+    cov.index_put_((lane[:, None], idx[None, :]),
+                   pick(cross.T, cov.index_select(1, idx)))
     rc = (idx[:, None], idx[None, :])
     cov.index_put_(rc, pick(block, cov[rc]))
 

@@ -20,8 +20,10 @@ Differences from the JAX module, none of them semantic:
 - Randomness is an explicit input (``sim/tube_world.TickNoise``): the
   drivers take a ``torch.Generator`` on the run's device, or a precomputed
   noise sequence (a :class:`TickNoise` whose fields have a leading T).
-- ``run_scenario_batch`` (the vmapped dense engine) is not ported yet; the
-  batched entry is :func:`run_scenario_batch_lanes`.
+- :func:`run_scenario_batch` keeps the JAX driver's two engines apart: the
+  filter is the single-world dense engine under ``torch.func.vmap``
+  (covariances ``(B, D, D)``), while the sim and perception run
+  batch-first as in :func:`run_scenario_batch_lanes` (no vmap needed).
 """
 
 from __future__ import annotations
@@ -140,21 +142,26 @@ def sense_tick(scn: ScenarioConfig, params: tw.WorldParams,
     return SenseState(world=world, odom=odom), twist, zs, valid, obs
 
 
+def filter_tick(scn: ScenarioConfig, Q, R, filt: ekf.EKFState, twist, zs,
+                valid) -> ekf.EKFState:
+    """The dense engine's part of one world's tick: predict and the
+    sequential updates, with known (ids = measurement order) or unknown
+    association."""
+    ecfg = scn.ekf_config()
+    if scn.known_association:
+        ids = torch.arange(zs.shape[0], dtype=torch.int32, device=zs.device)
+        return ekf.known_association_step(ecfg, filt, twist, zs, valid, ids,
+                                          Q, R)
+    return ekf.step(ecfg, filt, twist, zs, valid, Q, R)
+
+
 def slam_tick(scn: ScenarioConfig, params: tw.WorldParams, Q, R,
               state: PipelineState, cmd, noise: tw.TickNoise) -> tuple:
     """One 10 Hz SLAM tick of a single world on the dense engine
     (= ``sim_substeps`` 50 Hz sim ticks + odometry + EKF)."""
-    ecfg = scn.ekf_config()
     sense, twist, zs, valid, obs = sense_tick(
         scn, params, SenseState(state.world, state.odom), cmd, noise)
-
-    if scn.known_association:
-        ids = torch.arange(zs.shape[0], dtype=torch.int32, device=zs.device)
-        filt = ekf.known_association_step(
-            ecfg, state.filt, twist, zs, valid, ids, Q, R)
-    else:
-        filt = ekf.step(ecfg, state.filt, twist, zs, valid, Q, R)
-
+    filt = filter_tick(scn, Q, R, state.filt, twist, zs, valid)
     slam_pose = filt.mean[:3]
     out = TickOutput(
         true_pose=obs.true_pose,
@@ -227,10 +234,52 @@ def run_scenario(scn: ScenarioConfig, noise, dtype=torch.float32,
     return outs
 
 
+def run_scenario_batch(scn: ScenarioConfig, noise, batch: int, steps=None,
+                       dtype=torch.float32, device=None) -> TickOutput:
+    """Batched scenario run on the dense engine: ``batch`` independent
+    worlds advance in lockstep, each filter a single-world
+    ``models.ekf_slam`` state under ``torch.func.vmap`` (mean ``(B, D)``,
+    covariance ``(B, D, D)``), the sim and perception batch-first
+    ``(B, ...)``. Semantics identical to :func:`run_scenario_batch_lanes`;
+    returns the same ``(B, T, ...)`` TickOutputs.
+
+    ``noise``: a ``torch.Generator`` on ``device`` or a :class:`TickNoise`
+    sequence with fields ``(T, B, ...)``; ``device=None`` is the card.
+    Scenarios take the plain update (``pallas_update='auto'``)."""
+    device = resolve(device)
+    ecfg = scn.ekf_config()
+    params = scn.world_params(dtype, device)
+    Q, R = scn.noise_matrices(dtype, device)
+    T = scn.steps if steps is None else steps
+    B = batch
+    cmds = command_twist(scn, T, dtype, device)
+    src = _NoiseSource(scn, noise, (B,), dtype, device)
+
+    sense = init_sense(params, dtype, (B,))
+    one = ekf.init(ecfg, [0.0, 0.0, 0.0], dtype=dtype, device=device)
+    filt = ekf.EKFState(*(f.expand(B, *f.shape).clone() for f in one))
+    step = torch.func.vmap(
+        lambda f, tw_, zs_, v_: filter_tick(scn, Q, R, f, tw_, zs_, v_))
+    outs = _alloc_outputs((B,), T, dtype, device)
+    for t in range(T):
+        sense, twist, zs, valid, obs = sense_tick(
+            scn, params, sense, cmds[t], src.tick(t))
+        filt = step(filt, twist, zs, valid)
+        slam_pose = filt.mean[:, :3]
+        outs.true_pose[:, t] = obs.true_pose
+        outs.odom_pose[:, t] = sense.odom.pose
+        outs.slam_pose[:, t] = slam_pose
+        outs.n_seen[:, t] = filt.n_seen
+        outs.nees[:, t] = nees_fn(slam_pose, obs.true_pose,
+                                  filt.cov[:, :3, :3])
+    return outs
+
+
 def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
                              steps=None, dtype=torch.float32, device=None,
                              margins: dict | None = None,
-                             on_tick=None) -> TickOutput:
+                             on_tick=None,
+                             gate_trace: list | None = None) -> TickOutput:
     """Batched scenario run on the batch-trailing engine
     (``models.ekf_batch``): ``batch`` independent worlds advance in
     lockstep; the sim and perception are batch-first ``(B, ...)``, the
@@ -243,7 +292,10 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
     distances of a split, a circle and a gate decision to their thresholds
     (tensors; no host sync). ``on_tick(t, obs, zs, valid)`` is called after
     each tick's measurement stage (a hook for callers that consume the
-    scans)."""
+    scans). ``gate_trace`` (a list, diagnostics) receives each tick's
+    smallest relative gate margin of every world, a (B,) tensor, on
+    unknown association: where a world parts from another run, it tells a
+    rounding tie at a gate from a fault."""
     device = resolve(device)
     params = scn.world_params(dtype, device)
     Q, R = scn.noise_matrices(dtype, device)
@@ -256,7 +308,8 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
     sense = init_sense(params, dtype, (B,))
     filt = ekf_batch.init(ecfg, B, dtype=dtype, device=device)
     outs = _alloc_outputs((B,), T, dtype, device)
-    gate_margins = [] if margins is not None else None
+    gate_margins = [] if margins is not None or gate_trace is not None \
+        else None
     tick_margins = {} if margins is not None else None
 
     for t in range(T):
@@ -283,9 +336,12 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
             for k, v in tick_margins.items():
                 margins[k] = torch.minimum(margins[k], v) if k in margins \
                     else v
-            if gate_margins:
-                g = torch.stack(gate_margins).min()
-                margins["gate"] = torch.minimum(margins["gate"], g) \
-                    if "gate" in margins else g
-                gate_margins.clear()
+        if gate_margins:
+            g = torch.stack(gate_margins).amin(0)               # (B,)
+            gate_margins.clear()
+            if gate_trace is not None:
+                gate_trace.append(g)
+            if margins is not None:
+                margins["gate"] = torch.minimum(margins["gate"], g.min()) \
+                    if "gate" in margins else g.min()
     return outs

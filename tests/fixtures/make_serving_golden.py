@@ -18,6 +18,23 @@ backend) in f32, at full width:
   ``[tM, tM+M) mod N``, exact measurements, twist 0, Q = 1e-6 I,
   R = 1e-3 I, ``symmetrize=False``, ``pallas_update='off'``, 32 ticks.
 
+- ``loop5_golden.json`` (``loop5``): config 1, scenario ``loop5_known``
+  (5 tubes, known association, no noise: every draw is scaled by zero, so
+  every world is the same), 600 ticks of 5 sim substeps, through
+  ``pipeline/driver.run_scenario_batch_lanes`` for 4 keys. It holds
+  ``n_seen`` at every tick, the three poses every 5th tick and each
+  world's ATE over all 600 ticks.
+- ``course12_golden.json`` (``course12``): config 2, scenario
+  ``course12_noisy`` (12 tubes, unknown association at the reference's
+  first-hit gates, twist noise 0.001, slip 0.9-1.0), 600 ticks, through
+  ``run_scenario_batch_lanes`` for 8 worlds: 7 noisy ones from fixed
+  keys, and a deterministic one (``twist_noise=0``, ``slip_min = slip_max
+  = 0.95``, the C++ ``--deterministic`` setup), which is the same scenario
+  with every draw at zero. It holds the twist and slip normals the JAX key
+  tree draws for the noisy worlds (the only draws this scenario scales by
+  something other than zero; little-endian f32, base64), ``n_seen`` at
+  every tick, the three poses at every tick (f32, base64) and each world's
+  ATE.
 - ``lidar20_golden.json`` (``lidar20``): config 3, scenario
   ``lidar20_full`` (20 tubes, 360 rays, 16 clusters of 64 points, unknown
   association at the reference's first-hit gates, slip 0.95-1.0, 600 ticks
@@ -30,11 +47,12 @@ backend) in f32, at full width:
   and ``n_seen`` at every tick, the three poses every 10th tick, and each
   world's final ATE.
 
-    python tests/fixtures/make_serving_golden.py [known] [unknown] [dense] [lidar20]
+    python tests/fixtures/make_serving_golden.py [known] [unknown] [dense] [lidar20] [loop5] [course12]
 
-(no argument: all four). The first three files hold a few KB: final robot
+(no argument: all six). The first three files hold a few KB: final robot
 mean and covariance, landmark and covariance sums, and covariance entries
-at seeded sample positions; the fourth ~0.3 MB, most of it noise.
+at seeded sample positions; ``lidar20`` ~0.4 MB, most of it noise;
+``loop5`` ~0.1 MB; ``course12`` ~0.7 MB, most of it noise and poses.
 """
 
 from __future__ import annotations
@@ -53,10 +71,14 @@ HERE = Path(__file__).resolve().parent
 OUT = {"known": HERE / "serving_n2048_golden.json",
        "unknown": HERE / "serving_unknown_n2048_golden.json",
        "dense": HERE / "dense_n2048_golden.json",
-       "lidar20": HERE / "lidar20_golden.json"}
+       "lidar20": HERE / "lidar20_golden.json",
+       "loop5": HERE / "loop5_golden.json",
+       "course12": HERE / "course12_golden.json"}
 LIDAR_KEYS_SEED = 20      # PRNGKey(seed) split into the noisy worlds' keys
 LIDAR_NOISY = 7
 LIDAR_POSE_EVERY = 10
+LOOP5_KEYS_SEED, LOOP5_WORLDS, LOOP5_POSE_EVERY = 0, 4, 5
+COURSE12_KEYS_SEED, COURSE12_NOISY = 12, 7
 
 
 def sample_positions(n: int, k: int, seed: int):
@@ -261,6 +283,85 @@ def lidar20_golden(jax, jnp, np):
     }
 
 
+def _lanes_run(jnp, np, scn, keys):
+    """``run_scenario_batch_lanes`` outputs (numpy) and each world's ATE
+    over all ticks, positions [x, y], in f64."""
+    from shermbot_navigation_tpu.pipeline import driver
+    outs = driver.run_scenario_batch_lanes(scn, keys, None, jnp.float32)
+    outs = {k: np.asarray(v) for k, v in outs._asdict().items()}
+    d = outs["slam_pose"][:, :, 1:].astype(np.float64) \
+        - outs["true_pose"][:, :, 1:].astype(np.float64)
+    return outs, np.sqrt(np.mean(np.sum(d * d, axis=-1), axis=-1))
+
+
+def _b64(np, a):
+    import base64
+    return base64.b64encode(np.ascontiguousarray(a, "<f4").tobytes()
+                            ).decode()
+
+
+def loop5_golden(jax, jnp, np):
+    from shermbot_navigation_tpu.pipeline.config import get_scenario
+    scn = get_scenario("loop5_known")
+    keys = jax.random.split(jax.random.PRNGKey(LOOP5_KEYS_SEED),
+                            LOOP5_WORLDS)
+    outs, ate = _lanes_run(jnp, np, scn, keys)
+    ev = slice(LOOP5_POSE_EVERY - 1, None, LOOP5_POSE_EVERY)
+    return {
+        "source": "shermbot_navigation_tpu.pipeline.driver."
+                  "run_scenario_batch_lanes(loop5_known), XLA, CPU, "
+                  "float32; ATE over all 600 ticks, positions [x, y]",
+        "scenario": "loop5_known", "T": scn.steps, "B": LOOP5_WORLDS,
+        "keys_seed": LOOP5_KEYS_SEED,
+        "note": "no noise: every draw is scaled by zero, so every world "
+                "is the same",
+        "n_seen": outs["n_seen"].tolist(),
+        "pose_every": LOOP5_POSE_EVERY,
+        "true_pose": outs["true_pose"][:, ev].tolist(),
+        "odom_pose": outs["odom_pose"][:, ev].tolist(),
+        "slam_pose": outs["slam_pose"][:, ev].tolist(),
+        "ate": ate.tolist(),
+    }
+
+
+def course12_golden(jax, jnp, np):
+    import dataclasses
+    sys.path.insert(0, str(HERE.parent))
+    from _torch_parity import replay_tick_noise
+    from shermbot_navigation_tpu.pipeline.config import get_scenario
+    scn = get_scenario("course12_noisy")
+    det = dataclasses.replace(scn, twist_noise=0.0, slip_min=0.95,
+                              slip_max=0.95)
+    keys = jax.random.split(jax.random.PRNGKey(COURSE12_KEYS_SEED),
+                            COURSE12_NOISY)
+    outs, ate = _lanes_run(jnp, np, scn, keys)
+    douts, date = _lanes_run(jnp, np, det, keys[:1])
+    outs = {k: np.concatenate([outs[k], douts[k]]) for k in outs}
+    ate = np.concatenate([ate, date])
+    noise = replay_tick_noise(np.asarray(keys), scn.steps, scn.sim_substeps,
+                              360, len(scn.tubes), np.float32)
+    poses = {f"{f}_f32_b64": _b64(np, outs[f])
+             for f in ("true_pose", "odom_pose", "slam_pose")}
+    return {
+        "source": "shermbot_navigation_tpu.pipeline.driver."
+                  "run_scenario_batch_lanes(course12_noisy), XLA, CPU, "
+                  "float32; ATE over all 600 ticks, positions [x, y]",
+        "scenario": "course12_noisy", "T": scn.steps,
+        "B": COURSE12_NOISY + 1, "noisy_worlds": COURSE12_NOISY,
+        "keys_seed": COURSE12_KEYS_SEED,
+        "deterministic_world": "last; twist_noise = 0, slip_min = "
+                               "slip_max = 0.95, i.e. every twist and slip "
+                               "normal zero",
+        "normals_shape": list(noise["twist"].shape),
+        "twist_normals_f32_b64": _b64(np, noise["twist"]),
+        "slip_normals_f32_b64": _b64(np, noise["slip"]),
+        "n_seen": outs["n_seen"].tolist(),
+        "pose_shape": list(outs["slam_pose"].shape),
+        **poses,
+        "ate": ate.tolist(),
+    }
+
+
 def main(which):
     os.environ["JAX_PLATFORMS"] = "cpu"
     sys.path.insert(0, str(HERE.parents[1]))
@@ -269,7 +370,8 @@ def main(which):
     import jax.numpy as jnp
     import numpy as np
     makers = {"known": known_golden, "unknown": unknown_golden,
-              "dense": dense_golden, "lidar20": lidar20_golden}
+              "dense": dense_golden, "lidar20": lidar20_golden,
+              "loop5": loop5_golden, "course12": course12_golden}
     for name in which:
         t0 = time.perf_counter()
         golden = makers[name](jax, jnp, np)
@@ -278,4 +380,5 @@ def main(which):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["known", "unknown", "dense", "lidar20"])
+    main(sys.argv[1:] or ["known", "unknown", "dense", "lidar20", "loop5",
+                          "course12"])

@@ -21,8 +21,13 @@ library's atan2f, cosf and sinf serve both). At N=2048 and N=8192 the scan
 is held to 1e-4 of each output's
 scale (the planes' f32 asymmetry, amplified by the gain; ``chip_smoke.py``
 states the same bound), discrete outputs exactly; across cluster sizes and
-launch plans every output must be bit-equal.
+launch plans every output must be bit-equal. The dense engine under
+``torch.func.vmap`` and the lanes engine make the same decisions on the
+same noise and part by summation order only (poses within 1e-4 over 12
+f32 ticks of config 2).
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -633,3 +638,26 @@ def test_default_device_runs_a_tick_on_the_card(dev):
                                            2, steps=2)
     assert outs.slam_pose.is_cuda and bool(torch.isfinite(
         outs.slam_pose).all())
+
+
+def test_dense_batch_driver_and_bench_entry_default_to_the_card(dev, capsys):
+    """``run_scenario_batch`` and the bench entry with no device run on
+    ``cuda:<current>``; the dense engine under ``torch.func.vmap`` equals
+    the lanes engine there on the same noise."""
+    from shermbot_navigation_tpu_torch import bench
+    scn = get_scenario("course12_noisy")
+    here = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    seq = driver.tw.TickNoise(*(torch.stack(f) for f in zip(*(
+        driver.draw_noise(scn, gen, (4,)) for _ in range(12)))))
+    dense = driver.run_scenario_batch(scn, seq, 4, steps=12)
+    lanes = driver.run_scenario_batch_lanes(scn, seq, 4, steps=12)
+    assert dense.slam_pose.device == here
+    assert torch.equal(dense.n_seen, lanes.n_seen)
+    assert float((dense.slam_pose - lanes.slam_pose).abs().max()) < 1e-4
+    assert bench.main(["--batch", "4", "--steps", "3", "--cpp-runs", "1",
+                       "--engine", "vmapped"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["device"].startswith(torch.cuda.get_device_name(here))
+    assert row["execution"] == "eager" and row["value"] > 0

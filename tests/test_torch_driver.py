@@ -5,6 +5,7 @@ driver's key tree is replayed with ``jax.random``
 precomputed ``TickNoise`` sequence."""
 
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,20 @@ def _run_both(name, B, T, seed=7, **replace):
     noise = replay_tick_noise(np.asarray(keys), T, jscn.sim_substeps, 360,
                               len(jscn.tubes), np.float64)
     got = tdriver.run_scenario_batch_lanes(
+        tscn, tick_noise_from_numpy(noise), B, steps=T, dtype=torch.float64,
+        device="cpu")
+    return got, want
+
+
+def _run_vmapped_both(name, B, T, seed=7):
+    """JAX ``run_scenario_batch`` and the port's on the same replayed
+    noise, f64."""
+    jscn, tscn = jget(name), tget(name)
+    keys = jax.random.split(jax.random.PRNGKey(seed), B)
+    want = jdriver.run_scenario_batch(jscn, keys, T, jnp.float64)
+    noise = replay_tick_noise(np.asarray(keys), T, jscn.sim_substeps, 360,
+                              len(jscn.tubes), np.float64)
+    got = tdriver.run_scenario_batch(
         tscn, tick_noise_from_numpy(noise), B, steps=T, dtype=torch.float64,
         device="cpu")
     return got, want
@@ -85,6 +100,70 @@ def test_configs_1_and_2_lanes_match_jax(name):
     np.testing.assert_allclose(got.nees.numpy(), want.nees, rtol=1e-9,
                                atol=1e-12)
     assert int(got.n_seen[0, -1]) == len(tget(name).tubes)
+
+
+def test_course12_tuned_lanes_matches_jax():
+    """The tuned quality mode of config 2 (nearest-neighbour gating,
+    wrapped innovations, multiplicative slip) through the lanes driver."""
+    got, want = _run_both("course12_tuned", 3, 25)
+    np.testing.assert_array_equal(got.n_seen.numpy(), want.n_seen)
+    for f in ("true_pose", "odom_pose", "slam_pose"):
+        assert _diff(got, want, f) <= 1e-12, f
+    np.testing.assert_allclose(got.nees.numpy(), want.nees, rtol=1e-9,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["loop5_known", "course12_noisy"])
+def test_run_scenario_batch_matches_jax(name):
+    """``run_scenario_batch`` (the dense engine under ``torch.func.vmap``)
+    against the JAX ``run_scenario_batch`` (``jax.vmap``), f64, B=3."""
+    got, want = _run_vmapped_both(name, 3, 25)
+    assert got.slam_pose.shape == (3, 25, 3) and got.n_seen.shape == (3, 25)
+    np.testing.assert_array_equal(got.n_seen.numpy(), want.n_seen)
+    for f in ("true_pose", "odom_pose", "slam_pose"):
+        assert _diff(got, want, f) <= 1e-12, f
+    np.testing.assert_allclose(got.nees.numpy(), want.nees, rtol=1e-9,
+                               atol=1e-12)
+    assert int(got.n_seen[0, -1]) == len(tget(name).tubes)
+
+
+@pytest.mark.parametrize("name", ["course12_noisy", "loop5_known"])
+def test_run_scenario_batch_matches_lanes(name):
+    """The port's two batched engines on the same noise, f64, T=40 (the
+    port's copy of the JAX package's ``test_driver_lanes_matches_vmapped``,
+    at its tolerances). Under ``torch.func.vmap`` no op may fall back to a
+    loop over the worlds (functorch warns of a "performance drop" when one
+    does): such a loop would launch B times a tick on the card."""
+    scn = tget(name)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(7)
+    seq = TickNoise(*(torch.stack(f) for f in zip(*(
+        tdriver.draw_noise(scn, g, (4,), torch.float64) for _ in range(40)))))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop.*")
+        a = tdriver.run_scenario_batch(scn, seq, 4, steps=40,
+                                       dtype=torch.float64, device="cpu")
+    b = tdriver.run_scenario_batch_lanes(scn, seq, 4, steps=40,
+                                         dtype=torch.float64, device="cpu")
+    assert torch.equal(a.n_seen, b.n_seen)
+    assert torch.equal(a.true_pose, b.true_pose)
+    np.testing.assert_allclose(a.slam_pose.numpy(), b.slam_pose.numpy(),
+                               atol=1e-8)
+    np.testing.assert_allclose(a.nees.numpy(), b.nees.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_run_scenario_batch_takes_a_generator_and_refuses_bad_noise():
+    scn = tget("loop5_known")
+    g = torch.Generator(device="cpu")
+    g.manual_seed(3)
+    outs = tdriver.run_scenario_batch(scn, g, 2, steps=3, device="cpu:0")
+    assert outs.slam_pose.shape == (2, 3, 3)
+    assert outs.slam_pose.dtype == torch.float32
+    assert torch.isfinite(outs.slam_pose).all()
+    with pytest.raises(TypeError, match="Generator or a TickNoise"):
+        tdriver.run_scenario_batch(tget("loop5_known"), 0, 2, steps=1,
+                                   device="cpu")
 
 
 @pytest.mark.parametrize("name,T", [("lidar20_full", 12), ("stock6", 12)])
@@ -149,6 +228,22 @@ def test_generator_runs_are_reproducible_and_checked():
     assert outs[0].slam_pose.dtype == torch.float32
     with pytest.raises(TypeError, match="Generator or a TickNoise"):
         tdriver.run_scenario_batch_lanes(scn, 0, 2, steps=1, device="cpu")
+
+
+def test_gate_trace_gives_each_worlds_margin_every_tick():
+    """The lanes driver's ``gate_trace``: one (B,) tensor a tick, each
+    world's smallest relative gate margin; its minimum is the run's
+    ``margins["gate"]``."""
+    scn = tget("course12_noisy")
+    g = torch.Generator(device="cpu")
+    g.manual_seed(4)
+    trace, margins = [], {}
+    tdriver.run_scenario_batch_lanes(scn, g, 3, steps=12, device="cpu",
+                                     margins=margins, gate_trace=trace)
+    assert len(trace) == 12 and all(t.shape == (3,) for t in trace)
+    trace = torch.stack(trace)
+    assert torch.isfinite(trace[-1]).all() and (trace > 0).all()
+    assert float(trace.min()) == float(margins["gate"])
 
 
 def test_any_cpu_spelling_runs_the_lanes_driver():
