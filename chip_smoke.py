@@ -2,9 +2,10 @@
 """Drive the PyTorch port's paths once on one CUDA card: known- and
 unknown-association serving, the dense EKF engine, config 3
 (``lidar20_full``: lidar sim, clustering, circle fit, batch-trailing EKF)
-at B=1024 worlds with the buffered perception path beside it, and configs
+at B=1024 worlds with the buffered perception path beside it, configs
 1 and 2 (``loop5_known``, ``course12_noisy``: the fake sensor, the bench
-entry's path) on both batched engines, with the batch sweep.
+entry's path) on both batched engines, with the batch sweep, and config 4
+(``run_bigmap``) for 8 worlds, deferred and sequential.
 
     python3 chip_smoke.py
 
@@ -135,6 +136,29 @@ It imports nothing of JAX. Phases, one JSON line each:
    world x ticks / s grows by more than 10% and a full run's outputs fit,
    the saturation point, and ``torch.profiler`` over 4 ticks of each
    config on each engine: device kernels a tick, busy ms, idle share.
+18. config4 -- config 4 for B4=8 worlds at N=2048, M=8 (``run_bigmap``'s
+   width), each with its own map, through ``blocked_ekf``'s batched
+   deferred tick (kernels 1 and 2 launched once a tick for all worlds)
+   and its sequential tick (no kernel). The worlds differ
+   (``config4_inputs``: world b from tick 4 b, ids shifted by 8 b, some
+   measurements invalid) and fill their maps through the kernels for 264
+   ticks. (a) ``config4_kernels``: on the next tick, known and unknown,
+   each world's scan outputs and grid pass from the one launch for 8
+   worlds are bit-equal to its own one-world launch, and held to the
+   plain versions (the scan at SCAN_TOL on the same words and
+   SCAN_TOL_ROW_FOR_COLUMN on the same inputs, the grid pass at
+   GRID_ATOL); (b) ``config4_deferred_vs_sequential``: 32 ticks of both
+   ticks, known and unknown: each measurement's kind and slot, ``n_seen``
+   and ``seen`` equal at every tick, the state within DEFERRED_SEQ_TOL;
+   (c) ``config4_main_path``: ``run_bigmap(batch=8)`` with every counter
+   set to 0 just before: each kernel launched 32 times (once a tick),
+   every world bit-equal to ``run_bigmap(batch=1)``, and the unknown
+   runner's likewise; (d) ``config4_times``: ms a tick, deferred and
+   sequential, at B = 1, 8, 32, 128 (N=2048) and deferred at B=8,
+   N=8192, with device kernels a tick and the idle share by
+   ``torch.profiler``; both kernels at B=8 by CUDA events and profiler
+   beside their plain versions, bounds and (grid pass) ``torch.baddbmm``,
+   and the scan's latency floor under its batched plan.
 
 Then the card line as nvidia-smi prints it, the kernels line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -379,6 +403,31 @@ PROFILE_TICKS = 4
 # the (B, T, ...) outputs: three poses, n_seen and NEES, f32/int32
 OUTPUT_BYTES_PER_WORLD_TICK = 4 * (3 * 3 + 2)
 
+# Phase 18, config 4 for B worlds: BASELINE config 4's "single host 8
+# chips" is 8 robots on one card, each with its own N=2048 map, M=8,
+# T=32 (run_bigmap's defaults). The worlds differ (config4_inputs) and
+# first fill their maps through the kernels for FILL4 > N/M ticks, so the
+# checked ticks revisit (updates) and init the slots left unseen.
+B4 = 8
+T4 = 32
+FILL4 = 264
+B4_SWEEP = (1, 8, 32, 128)     # worlds timed at N=2048 (grid 0.07-8.6 GB)
+N4_LARGE = 8192                # the map timed at B4 (grid 8.6 GB)
+# Deferred (the kernels, one grid pass a tick) against sequential (no
+# kernel, M grid passes a tick) over T4 ticks of the filled maps, f32: the
+# same semantics in another summation order (the deferred tick subtracts
+# a tick's rank-2 terms as one sum; the scan reads grid column g as row g,
+# PARITY D13). On a CPU (plain versions, exact columns, 2 of the worlds)
+# the two part by at most 1.9e-6 of each field's scale after 32 ticks of
+# 464 (known) and 382 (unknown) updates: cov_rm 6.5e-8 of 0.035, the seen
+# grid 7.2e-6 of 5.9, cov_rr 5.6e-9 of 0.0036, mean_m 6.8e-10 of 46, all
+# decisions equal. The card adds D13: the scan itself is held to
+# SCAN_TOL_ROW_FOR_COLUMN of scale against the plain version on the same
+# inputs, and the state takes that bound. A missed, doubled or misplaced
+# update moves a field by a fraction of its scale and a changed decision
+# is caught exactly.
+DEFERRED_SEQ_TOL = SCAN_TOL_ROW_FOR_COLUMN
+
 KERNELS = {
     "grid_update": {
         "source": f"{PKG}/csrc/grid_update.cu",
@@ -406,6 +455,13 @@ KERNELS = {
     "circle_fit_tail": {
         "source": f"{PKG}/csrc/circle_fit.cu",
         "replaces": "shermbot_navigation_tpu/ops/circle_fit.py:133"},
+    # kernels 1 and 2 launched once for config 4's 8 worlds (phase 18)
+    "grid_update_batched": {
+        "source": f"{PKG}/csrc/grid_update.cu",
+        "replaces": "shermbot_navigation_tpu/ops/pallas/grid_update.py:87"},
+    "seq_scan_batched": {
+        "source": f"{PKG}/csrc/seq_scan.cu",
+        "replaces": "shermbot_navigation_tpu/ops/pallas/seq_scan.py:455"},
 }
 # f32 operations of one cluster's fit tail, counted from csrc/circle_fit.cu:
 # a Jacobi rotation is 75 multiplies, adds and subtracts and three calls
@@ -2599,6 +2655,408 @@ def phase_configs12(dev):
     phase_sweep(dev, scn1, scn2)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: config 4 for B worlds
+# ---------------------------------------------------------------------------
+
+def config4_inputs(wl, t, B, nearest=False):
+    """Tick ``t``'s inputs ``(twist (B, 3), zs (B, M, 2), valid (B, M),
+    ids (B, M))`` for B worlds that differ: world b is the workload run
+    from tick 4 b with ids shifted by b M (``nearest``: the M landmarks
+    nearest its true pose instead, as a range sensor sees them), and its
+    measurement m is invalid where (t + b + m) % 11 == 0 (so its slot
+    stays unseen until the sweep comes back). Made on the workload's
+    device, all worlds at once."""
+    n = wl.landmarks.shape[0]
+    m = wl.schedule.shape[1]
+    dev = wl.cmd.device
+    b = torch.arange(B, device=dev)
+    tt = t + 4 * b
+    pose = bigmap._true_pose(wl.cmd, (tt + 1).to(wl.cmd.dtype))   # (3, B)
+    if nearest:
+        d2 = ((wl.landmarks[None] - pose[1:].T[:, None]) ** 2).sum(-1)
+        ids = d2.topk(m, dim=1, largest=False).indices
+    else:
+        ids = (wl.schedule[tt % wl.schedule.shape[0]] + b[:, None] * m) % n
+    lm = wl.landmarks[ids.long()]
+    zs = ekf_slam.cartesian2polar(lm[..., 0] - pose[1][:, None],
+                                  lm[..., 1] - pose[2][:, None])
+    zs = torch.stack([zs[..., 0],
+                      se2.normalize_angle(zs[..., 1] - pose[0][:, None])],
+                     dim=-1)
+    valid = (t + b[:, None] + torch.arange(m, device=dev)[None]) % 11 != 0
+    return (wl.cmd[0].expand(B, 3), zs, valid, ids.to(torch.int32))
+
+
+def config4_start(cfg, wl, B):
+    """B empty maps, world b's robot at the workload's true pose of tick
+    4 b."""
+    st = blocked_ekf.init(cfg, B, device=wl.cmd.device)
+    tt = 4 * torch.arange(B, device=wl.cmd.device)
+    st.mean_r[:] = bigmap._true_pose(wl.cmd, tt.to(wl.cmd.dtype)).T
+    return st
+
+
+def config4_run(step, st, wl, t0, ticks, known, Q, R, decisions=None,
+                nearest=False):
+    """``ticks`` ticks of :func:`config4_inputs` from tick ``t0``; with
+    ``decisions``, each tick's n_seen and seen are appended beside the
+    step's own record."""
+    for t in range(t0, t0 + ticks):
+        tw, zs, valid, ids = config4_inputs(wl, t, st.mean_r.shape[0],
+                                            nearest)
+        st = step(st, tw, zs, valid, *((ids,) if known else ()), Q, R)
+        if decisions is not None:
+            decisions.append((st.n_seen.clone(), st.seen.clone()))
+    return st
+
+
+def clone_state(st):
+    return blocked_ekf.BlockedState(*(x.clone() for x in st))
+
+
+def config4_scan_args(cfg, st, wl, t, Q, R, known, nearest=False):
+    """The scan's batched arguments on tick ``t`` of the worlds (the
+    post-predict state) and the frozen planes."""
+    tw, zs, valid, ids = config4_inputs(wl, t, st.mean_r.shape[0], nearest)
+    p = blocked_ekf._predict_shard(cfg, st, tw, Q)
+    B, n = p.mean_r.shape[0], p.mean_m.shape[1]
+    return (p.mean_r, p.mean_m.transpose(1, 2).contiguous(), p.cov_rr,
+            p.cov_rm.permute(0, 1, 3, 2).reshape(B, 6, n), p.diag4, p.seen,
+            p.n_seen, p.cov_mm.reshape(B, 4, n, n), zs, valid,
+            ids if known else None, R)
+
+
+def world_args(args, b):
+    return tuple(x if i == 11 or x is None else x[b]
+                 for i, x in enumerate(args))
+
+
+def config4_kernels(cfg, st, wl, Q, R):
+    """(a) One tick of the differing worlds through both kernels, each
+    launched once for the B worlds: every world's outputs bit-equal to its
+    own one-world launch, and held to the plain version (the scan on the
+    same words at SCAN_TOL, on the same inputs at SCAN_TOL_ROW_FOR_COLUMN;
+    the grid pass at GRID_ATOL). Known association takes the sweep's ids
+    (revisits, and inits of the slots left unseen), unknown the landmarks
+    nearest each robot (matches and skips)."""
+    out, timing = {}, {}
+    for name, known in (("seq_scan", True), ("seq_scan_unknown", False)):
+        args = config4_scan_args(cfg, st, wl, FILL4, Q, R, known,
+                                 nearest=not known)
+        kw = {} if known else {"known": False}
+        got = sq.deferred_seq_scan(*args, use_kernel=True, **kw)
+        own_equal = True
+        errs_t, errs, bad = {}, {}, []
+        for b in range(B4):
+            one = world_args(args, b)
+            alone = sq.deferred_seq_scan(*one, use_kernel=True, **kw)
+            gb = [x[b] for x in got]
+            own_equal &= all(torch.equal(x, y) for x, y in zip(gb, alone))
+            e_t, bad_t = scan_compare(
+                gb, sq.reference_seq_scan(*transposed_planes(one), **kw))
+            e, bad_s = scan_compare(gb, sq.reference_seq_scan(*one, **kw),
+                                    SCAN_TOL_ROW_FOR_COLUMN)
+            bad += [f"world {b} {k}" for k in bad_t + bad_s]
+            for k in e_t:
+                errs_t[k] = max(errs_t.get(k, 0.0), e_t[k])
+                errs[k] = max(errs.get(k, 0.0), e[k])
+        kinds = got[11]
+        out[name] = {
+            "bit_equal_to_own_launches": own_equal,
+            "kinds_a_world": [sorted(set(k.tolist())) for k in kinds],
+            "n_seen": args[6].tolist(),
+            "max_abs_err_transposed_planes": errs_t, "max_abs_err": errs,
+            "disagree": bad}
+        if not own_equal or bad:
+            fail(f"{name} at B={B4}: own launches equal {own_equal}, "
+                 f"disagree {bad}")
+        if len({tuple(k.tolist()) for k in kinds}) < 2 or not bool(
+                (kinds == 1).any()):
+            fail(f"{name} at B={B4}: the worlds' ticks do not differ or "
+                 f"hold no update: {kinds.tolist()}")
+        if known:
+            ops = blocked_ekf.grid_operands(*got[7:])
+            grid_in = args[7].reshape(B4, 2, 2, N, N)
+            timing["seq_scan"] = (args, got)
+    cov = gu.fused_grid_update(grid_in.clone(), *ops, use_kernel=True)
+    own = all(torch.equal(cov[b], gu.fused_grid_update(
+        grid_in[b].clone(), *(x[b] for x in ops), use_kernel=True))
+        for b in range(B4))
+    err = max(float((cov[b] - gu.reference_grid_update(
+        grid_in[b], *(x[b] for x in ops))).abs().max()) for b in range(B4))
+    out["grid_update"] = {"bit_equal_to_own_launches": own,
+                          "max_abs_err": err, "atol": GRID_ATOL}
+    if not own or not err <= GRID_ATOL:
+        fail(f"grid_update at B={B4}: own launches equal {own}, err {err}")
+    timing["grid_update"] = (grid_in, ops)
+    return out, timing
+
+
+def seen_only(x, y, mask):
+    """``x`` and ``y`` with the entries outside ``mask`` zeroed, after
+    checking that those entries are equal (the unseen slots hold the prior
+    in both, untouched)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if not torch.equal(torch.where(mask, zero, x), torch.where(mask, zero, y)):
+        return None
+    return torch.where(mask, x, zero), torch.where(mask, y, zero)
+
+
+def config4_deferred_vs_sequential(cfg, st, wl, Q, R):
+    """(b) T4 ticks of the differing worlds from the filled maps through
+    the deferred tick (the kernels) and the sequential one (no kernel),
+    known and unknown, each robot observing its M nearest landmarks (the
+    sweep's far landmarks would all fall in the first-hit gray zone with
+    unknown association): the decisions (each measurement's kind and
+    slot, n_seen, seen) equal at every tick, the state within
+    DEFERRED_SEQ_TOL of scale (the grid and diag4 over the seen slots; the
+    unseen ones equal)."""
+    out = {}
+    for name, known in (("known", True), ("unknown", False)):
+        recs, runs = {}, {}
+        for deferred in (True, False):
+            dec, per_tick = [], []
+            make = (blocked_ekf.make_deferred_step if deferred
+                    else blocked_ekf.make_sequential_step)
+            step = make(cfg, M, st.mean_r.device, known=known, decisions=dec)
+            runs[deferred] = config4_run(step, clone_state(st), wl, FILL4,
+                                         T4, known, Q, R, per_tick,
+                                         nearest=True)
+            recs[deferred] = [d + p for d, p in zip(dec, per_tick)]
+        torch.cuda.synchronize()
+        first_diff = next((t for t, (x, y) in enumerate(zip(recs[True],
+                                                            recs[False]))
+                           if not all(map(torch.equal, x, y))), None)
+        kinds = torch.stack([r[0] for r in recs[True]])
+        a, b = runs.pop(True), runs.pop(False)
+        errs = {f: scale_err(getattr(a, f), getattr(b, f),
+                             tol=DEFERRED_SEQ_TOL)
+                for f in ("mean_r", "mean_m", "cov_rr", "cov_rm")}
+        seen = a.seen
+        for f, mask in (("diag4", seen[:, None, :]),
+                        ("cov_mm", (seen[:, None, None, :, None]
+                                    & seen[:, None, None, None, :]))):
+            pair = seen_only(getattr(a, f), getattr(b, f), mask)
+            errs[f] = ((float("inf"), False) if pair is None
+                       else scale_err(*pair, tol=DEFERRED_SEQ_TOL))
+            del pair
+        out[name] = {
+            "decisions_equal_every_tick": first_diff is None,
+            "first_differing_tick": first_diff,
+            "updates": int((kinds == 1).sum()),
+            "inits": int((kinds == 2).sum()),
+            "no_ops": int((kinds == 0).sum()),
+            "n_seen": a.n_seen.tolist(),
+            "max_abs_err": {k: v[0] for k, v in errs.items()},
+            "tol_of_scale": DEFERRED_SEQ_TOL}
+        del a, b
+        torch.cuda.empty_cache()
+        if first_diff is not None or not all(v[1] for v in errs.values()):
+            fail(f"config 4 {name}: deferred and sequential part: "
+                 f"{out[name]}")
+        if not out[name]["updates"]:
+            fail(f"config 4 {name}: the ticks hold no update")
+    return out
+
+
+def config4_main_path(dev, cfg):
+    """(c) ``run_bigmap(batch=B4)`` through the kernels, the counters set to
+    0 just before and read just after (each kernel once a tick, not B4
+    times); every world bit-equal to ``run_bigmap(batch=1)``, and the same
+    for the unknown runner."""
+    reset_counters()
+    st8, wl = bigmap.run_bigmap(N=N, T=T4, M=M, batch=B4, device=dev)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    st1, _ = bigmap.run_bigmap(N=N, T=T4, M=M, batch=1, device=dev)
+    Q, R = bigmap.noise(device=dev)
+    unk = [bigmap.make_unknown_runner(cfg, M, dev, batch=b)(
+        blocked_ekf.init(cfg, b, device=dev), wl, Q, R, 0, T4)
+        for b in (B4, 1)]
+    torch.cuda.synchronize()
+    equal = {name: all(torch.equal(getattr(a, f)[w], getattr(b, f)[0])
+                       for f in a._fields for w in range(B4))
+             for name, a, b in (("known", st8, st1),
+                                ("unknown", unk[0], unk[1]))}
+    true = bigmap._true_pose(wl.cmd, torch.tensor(float(T4), device=dev))
+    out = {"launches": {k: v for k, v in launches.items() if v},
+           "bit_equal_to_batch_1": equal,
+           "n_seen": {"known": st8.n_seen.tolist(),
+                      "unknown": unk[0].n_seen.tolist()},
+           "finite": bool(all(torch.isfinite(x).all() for x in st8
+                              if x.is_floating_point())),
+           "pose_err_m": float((st8.mean_r[:, 1:] - true[1:]).norm(dim=1)
+                               .max())}
+    if (launches["grid_update"] != T4 or launches["seq_scan"] != T4
+            or any(v for k, v in launches.items()
+                   if k not in ("grid_update", "seq_scan"))):
+        fail(f"run_bigmap(batch={B4}) launched {launches}, not each of "
+             f"the two kernels once a tick")
+    if not all(equal.values()) or not out["finite"]:
+        fail(f"run_bigmap(batch={B4}): {out}")
+    if st8.n_seen.tolist() != [T4 * M] * B4:
+        fail(f"run_bigmap(batch={B4}) n_seen {st8.n_seen.tolist()}")
+    return out, launches
+
+
+def profile_config4_ticks(run_ticks, ticks, ms_per_tick):
+    """Device kernels a tick, busy ms, idle share and the two kernels'
+    device ms a tick over ``run_ticks(ticks)``, from ``torch.profiler``
+    (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_ticks(ticks)
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.count, getattr(ev, "device_time_total",
+                                       getattr(ev, "cuda_time_total", 0)))
+            for ev in prof.key_averages()]
+    busy = sum(r[2] for r in rows) / 1e3 / ticks
+    if not busy:
+        return None
+    part = lambda key: sum(r[2] for r in rows if key in r[0]) / 1e3 / ticks
+    return {"ticks": ticks, "device_kernels_per_tick":
+            sum(r[1] for r in rows) / ticks,
+            "device_busy_ms_per_tick": busy,
+            "device_idle_share": 1.0 - busy / ms_per_tick,
+            "seq_scan_ms": part("seq_scan"),
+            "grid_update_ms": part("grid_update")}
+
+
+def config4_times(dev, wl0, st0):
+    """(d) ms a tick of the deferred and the sequential tick at
+    B = 1, 8, 32, 128 from world 0's filled map (known ids, the sweep's
+    revisits: updates), and of the deferred tick at B=8, N=8192 from empty
+    maps; host clock around synchronized ticks, with a profile of the
+    deferred ticks beside."""
+    rows = {}
+    Q, R = bigmap.noise(device=dev)
+    for n, batches, deferreds in ((N, B4_SWEEP, (True, False)),
+                                  (N4_LARGE, (B4,), (True,))):
+        c = EKFConfig(num_landmarks=n)
+        wl = wl0 if n == N else bigmap.make_workload(n, 64, M, device=dev)
+        for B in batches:
+            for deferred in deferreds:
+                if n == N:
+                    st = blocked_ekf.BlockedState(*(
+                        x[:1].expand(B, *x.shape[1:]).clone() for x in st0))
+                    t0 = FILL4
+                else:
+                    st, t0 = blocked_ekf.init(c, B, device=dev), 0
+                run = bigmap.make_runner(c, M, dev, batch=B,
+                                         deferred=deferred)
+                warm, ticks = (2, 8) if deferred else (1, 3)
+                st = run(st, wl, Q, R, t0, warm)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                st = run(st, wl, Q, R, t0 + warm, ticks)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) / ticks * 1e3
+                key = f"N={n} B={B} {'deferred' if deferred else 'sequential'}"
+                rows[key] = {"ms_per_tick": ms,
+                             "world_ticks_per_s": B / ms * 1e3,
+                             "grid_gb": 16 * n * n * B / 1e9}
+                holder = [st]
+
+                def more(k, t=t0 + warm + ticks):
+                    holder[0] = run(holder[0], wl, Q, R, t, k)
+                rows[key]["profile"] = profile_config4_ticks(
+                    more, 3 if deferred else 1, ms)
+                st = holder[0]
+                if deferred and B > B4:
+                    # the scan under the plan chosen for B clusters against
+                    # the default cluster, which cannot hold them all at once
+                    args = config4_scan_args(c, st, wl, t0, Q, R, True)
+                    rows[key]["seq_scan_device_ms"] = {
+                        str(sq.launch_plan(n, M, batch=B, max_active=lambda
+                                           pl: sq.max_active_clusters(pl, M))
+                            ["cluster"]): profiled_device_ms(
+                                lambda: sq.deferred_seq_scan(*args), "seq_scan",
+                                5),
+                        "8 (default)": profiled_device_ms(
+                            lambda: sq.deferred_seq_scan(*args, cluster=8),
+                            "seq_scan", 5)}
+                    del args
+                del st, run, holder
+                torch.cuda.empty_cache()
+    return rows
+
+
+def config4_kernel_rows(dev, timing, plan_kw):
+    """The two kernels at B4 worlds for the kernels line: ms a call (CUDA
+    events), device ms (profiler), the plain versions' ms, the bounds of
+    B4 worlds' work, the library call that computes the grid pass
+    (``torch.baddbmm`` on the 4 B4 planes, used nowhere in the port), and
+    the scan's latency floor under its plan."""
+    args, _ = timing["seq_scan"]
+    grid_in, ops = timing["grid_update"]
+    g = grid_in.clone()
+    rows = {
+        "grid_update": {
+            "ms": cuda_ms(lambda: gu.fused_grid_update(g, *ops), 20),
+            "device_ms": profiled_device_ms(
+                lambda: gu.fused_grid_update(g, *ops), "grid_update", 10),
+            "plain_ms": cuda_ms(lambda: gu.reference_grid_update(grid_in,
+                                                                 *ops),
+                                1, 3)},
+        "seq_scan": {
+            "ms": cuda_ms(lambda: sq.deferred_seq_scan(*args), 20),
+            "device_ms": profiled_device_ms(
+                lambda: sq.deferred_seq_scan(*args), "seq_scan", 10),
+            "plain_ms": cuda_ms(lambda: sq.deferred_seq_scan(
+                *args, use_kernel=False), 1, 1)}}
+    a, b = ops[0], ops[1]
+    g4 = grid_in.reshape(B4 * 4, N, N)
+    a4 = a[:, :, None].expand(B4, 2, 2, N, 2 * M).reshape(B4 * 4, N, 2 * M)
+    b4 = b[:, None].expand(B4, 2, 2, 2 * M, N).reshape(B4 * 4, 2 * M, N)
+    rows["grid_update"]["library_ms"] = cuda_ms(
+        lambda: torch.baddbmm(g4, a4, b4, alpha=-1.0), 20)
+    rows["seq_scan"]["library_ms"] = None
+    work = serving_work(N)
+    for k in rows:
+        rows[k].update(bound_of(B4 * work[k][0], B4 * work[k][1]))
+    plan = sq.launch_plan(N, M, batch=B4, **plan_kw)
+    rows["seq_scan"]["plan"] = plan
+    rows["seq_scan"]["latency_floor_ms"] = chain_floor(dev, plan)[
+        "seq_scan"]["floor_ms"]
+    rows["grid_update"]["plan"] = gu.launch_plan(N, N, M, batch=B4)
+    return rows
+
+
+def phase_config4_batch(dev):
+    """Phase 18: config 4 for B4 worlds (see the module docstring)."""
+    cfg = EKFConfig(num_landmarks=N)
+    Q, R = bigmap.noise(device=dev)
+    wl = bigmap.make_workload(N, FILL4 + T4 + 4 * B4 + 1, M, device=dev)
+    t0 = time.perf_counter()
+    st = config4_run(blocked_ekf.make_deferred_step(cfg, M, dev),
+                     config4_start(cfg, wl, B4), wl, 0, FILL4, True, Q, R)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    kernels, timing = config4_kernels(cfg, st, wl, Q, R)
+    emit(phase="config4_kernels", N=N, M=M, B=B4, fill_ticks=FILL4,
+         fill_s=fill_s, **kernels)
+    dvs = config4_deferred_vs_sequential(cfg, st, wl, Q, R)
+    emit(phase="config4_deferred_vs_sequential", N=N, M=M, B=B4, T=T4,
+         **dvs)
+    main, launches = config4_main_path(dev, cfg)
+    emit(phase="config4_main_path", N=N, M=M, B=B4, T=T4, **main)
+    max_active = lambda plan: sq.max_active_clusters(plan, M)
+    rows = config4_kernel_rows(dev, timing, {"max_active": max_active})
+    del timing
+    times = config4_times(dev, wl, st)
+    emit(phase="config4_times", M=M, nvidia_smi=nvidia_smi(),
+         kernels_at_B8={k: {kk: vv for kk, vv in v.items()}
+                        for k, v in rows.items()}, ticks=times,
+         plans={f"B={b}": sq.launch_plan(N, M, batch=b,
+                                         max_active=max_active)
+                for b in B4_SWEEP})
+    errs = {"grid_update": kernels["grid_update"]["max_abs_err"],
+            "seq_scan": max(kernels["seq_scan"][
+                "max_abs_err_transposed_planes"].values())}
+    return launches, errs, rows
+
+
 def ptxas_resources(text: str):
     """Registers, shared memory and spill bytes of every kernel, from
     ``nvcc -Xptxas -v``'s output."""
@@ -2686,6 +3144,8 @@ def main() -> int:
     phase_kernel_scaling(dev)
     torch.cuda.empty_cache()
     phase_configs12(dev)
+    torch.cuda.empty_cache()
+    b_launches, b_errs, b_rows = phase_config4_batch(dev)
 
     launches = dict(launches, seq_scan_unknown=unk_launches["seq_scan"],
                     cov_update=dense_launches, circle_moments=cm_launches,
@@ -2703,6 +3163,14 @@ def main() -> int:
                            "(path B)",
              "circle_fit_tail": "config 3's segmented perception (path A)"}
     bounds = kernel_bounds(cm_ops[1])
+    for k in ("grid_update", "seq_scan"):
+        key = f"{k}_batched"
+        launches[key], errs[key] = b_launches[k], b_errs[k]
+        per_call[key] = b_rows[k]
+        bounds[key] = b_rows[k]
+        lib[key] = b_rows[k]["library_ms"]
+        paths[key] = (f"config 4 at {B4} worlds, run_bigmap(batch={B4}), "
+                      f"one launch a tick")
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"], launches=launches[k],
                     max_abs_err=errs[k], ms=per_call[k]["ms"],

@@ -1,7 +1,8 @@
 // Deferred rank-2M landmark-grid pass, for sm_90a.
 //
 // Replaces the TPU kernel shermbot_navigation_tpu/ops/pallas/grid_update.py
-// (fused_grid_update). Per comp plane (p, r) of the grid cov (2, 2, Nl, N):
+// (fused_grid_update). Per comp plane (p, r) of the grid cov (2, 2, Nl, N)
+// of each of B worlds (one launch; the JAX package vmaps the TPU kernel):
 //
 //   out[p,r,n,m] = overwrite(p, r, n, m) - sum_{k<2M} A[p,n,k] B[r,k,m]
 //
@@ -38,6 +39,10 @@
 // address) takes plain loads and stores inside the same walk. K-chunks of
 // at most 64 keep B within shared memory: a larger 2M runs as further
 // launches that subtract their products from the grid the first one wrote.
+//
+// Worlds: the launch grid's z runs over the 4 B (world, plane) pairs,
+// z = 4 world + plane; each operand has its world's slab at a fixed
+// stride, so a world's outputs do not depend on B.
 //
 // In place: the kernel writes into cov's own storage. That is safe because
 // each element is read and then written by the same thread only. (The JAX
@@ -101,7 +106,8 @@ grid_update_kernel(float* __restrict__ cov, const float* __restrict__ a,
       kTileRows * kTileCols + 2 * (kTileRows * kcp + kTileRows);
   float* const ring = smem + kc * kTileCols;
 
-  const int plane = blockIdx.z;        // p * 2 + r
+  const int plane = blockIdx.z & 3;    // p * 2 + r
+  const size_t world = blockIdx.z >> 2;
   const int pp = plane >> 1;
   const int rr = plane & 1;
   const int row_begin = blockIdx.y * rows_per_block;
@@ -116,11 +122,13 @@ grid_update_kernel(float* __restrict__ cov, const float* __restrict__ a,
   const int c0 = col0 + tx * 4;
   const int n_tiles = (row_end - row_begin + kTileRows - 1) / kTileRows;
 
-  const float* ap = a + (size_t)pp * nl * k2 + k_off;     // A[p] (Nl, 2M)
-  const float* bp = b + ((size_t)rr * k2 + k_off) * n;    // B[r] (2M, N)
-  float* cp = cov + (size_t)plane * nl * n;
-  const float* crp = crow + (size_t)plane * m * n;      // crow[p, r] (M, N)
-  const float* ccp = ccol + (size_t)plane * nl * m;     // ccol[p, r] (Nl, M)
+  const float* ap = a + (world * 2 + pp) * nl * k2 + k_off;   // A[p] (Nl, 2M)
+  const float* bp = b + ((world * 2 + rr) * k2 + k_off) * n;  // B[r] (2M, N)
+  float* cp = cov + (world * 4 + plane) * nl * n;
+  const float* crp = crow + (world * 4 + plane) * m * n;  // crow[p, r] (M, N)
+  const float* ccp = ccol + (world * 4 + plane) * nl * m; // ccol[p, r] (Nl, M)
+  const int* rtp = rowt + world * nl;
+  const int* ctp = colt + world * n;
 
   // tile t of this block into its ring slot: this thread's 16 bytes of
   // each of its 4 rows; this warp's 4 rows of A and of rowt
@@ -139,7 +147,7 @@ grid_update_kernel(float* __restrict__ cov, const float* __restrict__ a,
         cp_async16(st + rl * kTileCols + tx * 4, cp + (size_t)row * n + c0);
       for (int k = lane; k < kc; k += 32)
         cp_async4(as + rl * kcp + k, ap + (size_t)row * k2 + k);
-      if (lane == 0) cp_async4(rts + rl, rowt + row);
+      if (lane == 0) cp_async4(rts + rl, rtp + row);
     }
   };
 
@@ -164,7 +172,7 @@ grid_update_kernel(float* __restrict__ cov, const float* __restrict__ a,
   int ct[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    ct[e] = (replay && c0 + e < n) ? colt[c0 + e] : -1;
+    ct[e] = (replay && c0 + e < n) ? ctp[c0 + e] : -1;
   __syncthreads();
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -280,15 +288,17 @@ grid_update_kernel(float* __restrict__ cov, const float* __restrict__ a,
 
 }  // namespace
 
-// Returns the launch's error code (0 = launched). `rows_per_block` (a
+// Returns the launch's error code (0 = launched). The operands hold
+// `batch` worlds, each a slab of the one-world shapes. `rows_per_block` (a
 // multiple of 16) is the walk's length, from ops/kernels/grid_update.py
 // launch_plan.
 extern "C" int grid_update(void* cov, const void* a, const void* b,
                            const void* crow, const void* ccol,
                            const void* rowt, const void* colt, int nl, int n,
-                           int m, int rows_per_block, void* stream) {
-  if (nl <= 0 || n <= 0 || m <= 0 || rows_per_block < kTileRows ||
-      rows_per_block % kTileRows != 0)
+                           int m, int batch, int rows_per_block,
+                           void* stream) {
+  if (nl <= 0 || n <= 0 || m <= 0 || batch <= 0 || batch > 65535 / 4 ||
+      rows_per_block < kTileRows || rows_per_block % kTileRows != 0)
     return (int)cudaErrorInvalidValue;
   const int k2 = 2 * m;
   const int vec = (n % 4 == 0) && ((uintptr_t)cov % 16 == 0) &&
@@ -309,7 +319,7 @@ extern "C" int grid_update(void* cov, const void* a, const void* b,
   }
   const dim3 block(kThreadsX, kThreadsY);
   const dim3 grid((n + kTileCols - 1) / kTileCols,
-                  (nl + rows_per_block - 1) / rows_per_block, 4);
+                  (nl + rows_per_block - 1) / rows_per_block, 4 * batch);
   for (int k_off = 0; k_off < k2; k_off += kMaxChunk) {
     const int kc = min(kMaxChunk, k2 - k_off);
     grid_update_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(

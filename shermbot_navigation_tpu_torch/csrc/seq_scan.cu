@@ -3,11 +3,11 @@
 //
 // Replaces the TPU kernel shermbot_navigation_tpu/ops/pallas/seq_scan.py
 // (deferred_seq_scan, both branches): the whole M-measurement scan of one
-// tick of the deferred blocked step at map=1, batch=1.
+// tick of the deferred blocked step at map=1, for B worlds in one launch.
 //
 // What bounds it on an H100: latency, not bandwidth or arithmetic. The M
 // measurements are a serial chain (each Kalman update reads the state the
-// previous one wrote) at batch 1. A measurement costs its barriers, one
+// previous one wrote) in each world. A measurement costs its barriers, one
 // exchange of slot g's values between the thread that owns lane g and
 // everyone else, and a chain of scalar arithmetic (two atan2f, sinf/cosf
 // pairs, eight divisions); the bytes (26 N strip words, M rows of 16 N
@@ -63,6 +63,13 @@
 //   * Every output is the same for every cluster size, bit for bit: all
 //     arithmetic is lane-local or replicated and the one reduction is an
 //     integer minimum.
+//   * B worlds: the launch grid is (cluster, B) with clusters of
+//     (cluster, 1, 1), so cluster y of the grid is world y and blockIdx.y
+//     picks its slab of every operand and output (R is shared). Clusters
+//     never talk to each other, so a world's outputs do not depend on B
+//     (the JAX package runs its XLA scan under vmap there: the same
+//     function). Where B clusters of the default size cannot be resident
+//     at once, launch_plan may take a smaller cluster.
 // Kept from the first port: a slot read is a direct read of index g;
 // atan2f / sinf / cosf (build without --use_fast_math); an out-of-range id
 // is a full no-op; the clamped new slot; the sticky `stopped`.
@@ -311,20 +318,27 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
   const int D = p.ring;
   const bool known = p.known != 0;
   const bool hist_smem = p.hist_smem != 0;
+  // this cluster's world: the slabs of the operands read or written
+  // inside the measurement loop (the others are offset where used)
+  const size_t world = blockIdx.y;
+  const float* const mm0p = p.mm0p + world * 4 * (size_t)N * N;
+  float* const Kb = p.Kb + world * 4 * (size_t)M * N;
+  float* const HSb = p.HSb + world * 4 * (size_t)M * N;
+  float* const CRb = p.CRb + world * 4 * (size_t)M * N;
   float* const ring = dyn;                       // [D][4][PL]
   float* const hist = dyn + (size_t)D * 4 * PL;  // [M][4][PL]
   const int swap[4] = {0, 2, 1, 3};   // comp (p, q) <- plane (q, p)
 
   // ---- the tick's inputs, the robot, this thread's lanes ----
   for (int j = tid; j < M; j += T) {
-    s.zs[j][0] = p.zs[j * 2 + 0];
-    s.zs[j][1] = p.zs[j * 2 + 1];
-    int ok = p.valid[j] != 0;
+    s.zs[j][0] = p.zs[(world * M + j) * 2 + 0];
+    s.zs[j][1] = p.zs[(world * M + j) * 2 + 1];
+    int ok = p.valid[world * M + j] != 0;
     int g = 0;
     if (known) {
       // out-of-range id -> full no-op (no phantom n_seen bump), the rule
       // of the XLA scan and the TPU kernel
-      const int id = p.ids[j];
+      const int id = p.ids[world * M + j];
       ok = ok && id >= 0 && id < N;
       g = id < 0 ? 0 : (id >= N ? N - 1 : id);
     }
@@ -333,18 +347,19 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
     s.first[j] = kNoHit;
   }
   Robot rb;
-  rb.th = p.mean_r[0];
-  rb.x = p.mean_r[1];
-  rb.y = p.mean_r[2];
+  rb.th = p.mean_r[world * 3 + 0];
+  rb.x = p.mean_r[world * 3 + 1];
+  rb.y = p.mean_r[world * 3 + 2];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int k = 0; k < 3; ++k) rb.crr[i][k] = p.cov_rr[i * 3 + k];
+    for (int k = 0; k < 3; ++k)
+      rb.crr[i][k] = p.cov_rr[world * 9 + i * 3 + k];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int k = 0; k < 2; ++k) rb.R[i][k] = p.R[i * 2 + k];
-  rb.n_seen = p.n_seen[0];
+  rb.n_seen = p.n_seen[world];
   rb.stopped = 0;
   // kinds of the tick's ops so far, replicated like the robot
   uint64_t upd = 0, ini = 0;
@@ -360,12 +375,12 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
     sn[k] = false;
     if (ln[k] >= 0) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) mm[k][c] = p.mm2[c * N + n];
+      for (int c = 0; c < 2; ++c) mm[k][c] = p.mm2[(world * 2 + c) * N + n];
 #pragma unroll
-      for (int c = 0; c < 6; ++c) rm[k][c] = p.rm6[c * N + n];
+      for (int c = 0; c < 6; ++c) rm[k][c] = p.rm6[(world * 6 + c) * N + n];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dg[k][c] = p.diag4[c * N + n];
-      sn[k] = p.seen[n] != 0;
+      for (int c = 0; c < 4; ++c) dg[k][c] = p.diag4[(world * 4 + c) * N + n];
+      sn[k] = p.seen[world * N + n] != 0;
     } else {
 #pragma unroll
       for (int c = 0; c < 2; ++c) mm[k][c] = 0.0f;
@@ -385,7 +400,7 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           cp_async4(ring + ((size_t)slot * 4 + c) * PL + k * T + tid,
-                    p.mm0p + ((size_t)c * N + g) * N + ln[k]);
+                    mm0p + ((size_t)c * N + g) * N + ln[k]);
       }
   };
   auto sync_all = [&]() {
@@ -482,7 +497,7 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
       // 2 of op i, which ordered them for the whole cluster)
       for (int i = tid & 31; i < j; i += 32)
         if ((upd >> i) & 1) {
-          const float* h = p.HSb + (size_t)i * 4 * N + g;
+          const float* h = HSb + (size_t)i * 4 * N + g;
           s.pkt[3 + i] = make_float4(h[0], h[N], h[2 * (size_t)N],
                                      h[3 * (size_t)N]);
         }
@@ -534,7 +549,7 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
             } else {
 #pragma unroll
               for (int c = 0; c < 4; ++c)
-                kk[c] = p.Kb[((size_t)i * 4 + c) * N + n];
+                kk[c] = Kb[((size_t)i * 4 + c) * N + n];
             }
             const float4 hv = pk[3 + i];
             col[0] = col[0] - (kk[0] * hv.x + kk[1] * hv.y);
@@ -551,14 +566,14 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
               } else {
 #pragma unroll
                 for (int c = 0; c < 4; ++c)
-                  col[c] = p.CRb[((size_t)i * 4 + swap[c]) * N + n];
+                  col[c] = CRb[((size_t)i * 4 + swap[c]) * N + n];
               }
             } else if (n == si) {
               // one lane of the map: the init's strip at lane g, written
               // by g's owner before the last barrier
 #pragma unroll
               for (int c = 0; c < 4; ++c)
-                col[c] = __ldcg(p.CRb + ((size_t)i * 4 + c) * N + g);
+                col[c] = __ldcg(CRb + ((size_t)i * 4 + c) * N + g);
             }
           }
         }
@@ -572,7 +587,7 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
                             col[pp * 2 + 0] * ge.h5[q][3] +
                             col[pp * 2 + 1] * ge.h5[q][4];
             s4[k][pp * 2 + q] = v;
-            p.HSb[((size_t)j * 4 + pp * 2 + q) * N + n] = v;
+            HSb[((size_t)j * 4 + pp * 2 + q) * N + n] = v;
           }
         if (n == g) {
           const float4 v = make_float4(s4[k][0], s4[k][1], s4[k][2], s4[k][3]);
@@ -598,13 +613,13 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
     if (tid == 0) {
       s.gs[j] = g;
       if (rank == 0) {
-        p.kindb[j] = kind;
-        p.gb[j] = kind > 0 ? g : -1;
+        p.kindb[world * M + j] = kind;
+        p.gb[world * M + j] = kind > 0 ? g : -1;
       }
     }
-    float* kb = p.Kb + (size_t)j * 4 * N;
-    float* hb = p.HSb + (size_t)j * 4 * N;
-    float* cb = p.CRb + (size_t)j * 4 * N;
+    float* kb = Kb + (size_t)j * 4 * N;
+    float* hb = HSb + (size_t)j * 4 * N;
+    float* cb = CRb + (size_t)j * 4 * N;
     if (kind == 1) {
       // innovation covariance, gain rows of the robot block, the robot
       // mean / covariance update
@@ -738,30 +753,32 @@ __global__ void __launch_bounds__(TMAX) seq_scan_kernel(const Params p) {
     if (ln[k] < 0) continue;
     const int n = ln[k];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) p.mm2_o[c * N + n] = mm[k][c];
+    for (int c = 0; c < 2; ++c) p.mm2_o[(world * 2 + c) * N + n] = mm[k][c];
 #pragma unroll
-    for (int c = 0; c < 6; ++c) p.rm6_o[c * N + n] = rm[k][c];
+    for (int c = 0; c < 6; ++c) p.rm6_o[(world * 6 + c) * N + n] = rm[k][c];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) p.diag4_o[c * N + n] = dg[k][c];
-    p.seen_o[n] = sn[k] ? 1 : 0;
+    for (int c = 0; c < 4; ++c) p.diag4_o[(world * 4 + c) * N + n] = dg[k][c];
+    p.seen_o[world * N + n] = sn[k] ? 1 : 0;
   }
   if (rank == 0 && tid == 0) {
-    p.mean_r_o[0] = rb.th;
-    p.mean_r_o[1] = rb.x;
-    p.mean_r_o[2] = rb.y;
+    p.mean_r_o[world * 3 + 0] = rb.th;
+    p.mean_r_o[world * 3 + 1] = rb.x;
+    p.mean_r_o[world * 3 + 2] = rb.y;
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int k = 0; k < 3; ++k) p.cov_rr_o[i * 3 + k] = rb.crr[i][k];
-    p.n_seen_o[0] = rb.n_seen;
+      for (int k = 0; k < 3; ++k)
+        p.cov_rr_o[world * 9 + i * 3 + k] = rb.crr[i][k];
+    p.n_seen_o[world] = rb.n_seen;
   }
   // no CTA leaves while another may still read its shared memory
   if (C > 1) cluster.sync();
 }
 
-template <int L, int TMAX, bool CLOCK = false>
-cudaError_t launch(const Params& p, int threads, size_t smem,
-                   cudaStream_t stream) {
+// The kernel instance's attributes for a launch of `cluster`-CTA clusters
+// with `smem` bytes of dynamic shared memory, set once each.
+template <int L, int TMAX, bool CLOCK>
+cudaError_t prepare(int cluster, size_t smem) {
   auto kernel = seq_scan_kernel<L, TMAX, CLOCK>;
   static size_t smem_set = 0;
   static bool nonportable = false;
@@ -771,14 +788,46 @@ cudaError_t launch(const Params& p, int threads, size_t smem,
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  if (p.cluster > 8 && !nonportable) {
+  if (cluster > 8 && !nonportable) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     nonportable = true;
   }
+  return cudaSuccess;
+}
+
+// How many clusters of the instance the card holds at once (negative: the
+// error code of the query).
+template <int L, int TMAX>
+int max_clusters(int cluster, int threads, size_t smem) {
+  cudaError_t e = prepare<L, TMAX, false>(cluster, smem);
+  if (e != cudaSuccess) return -(int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cluster);
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, seq_scan_kernel<L, TMAX, false>,
+                                     &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <int L, int TMAX, bool CLOCK = false>
+cudaError_t launch(const Params& p, int batch, int threads, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = seq_scan_kernel<L, TMAX, CLOCK>;
+  cudaError_t e0 = prepare<L, TMAX, CLOCK>(p.cluster, smem);
+  if (e0 != cudaSuccess) return e0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster, batch);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -847,23 +896,26 @@ __global__ void seq_scan_probe_kernel(int mode, int cluster_size, int iters,
 
 }  // namespace
 
-// Returns the launch's error code (0 = launched). `ids` may be null when
-// known == 0. The plan (cluster CTAs of `threads` threads, `lanes` lanes a
-// thread, `ring` row slots, history in shared memory or not) comes from
-// ops/kernels/seq_scan.py launch_plan; cluster * threads * lanes >= n.
-// `stamps`, if not null, is (m, 8) int64: the launch then runs the clocked
-// instance, which exists for 1 and 2 lanes a thread (the measured plans).
+// Returns the launch's error code (0 = launched). Every operand but R
+// holds `batch` worlds, each a slab of the one-world shapes; one cluster a
+// world. `ids` may be null when known == 0. The plan (cluster CTAs of
+// `threads` threads, `lanes` lanes a thread, `ring` row slots, history in
+// shared memory or not) comes from ops/kernels/seq_scan.py launch_plan;
+// cluster * threads * lanes >= n. `stamps`, if not null, is (m, 8) int64:
+// the launch then runs the clocked instance, which exists for 1 and 2
+// lanes a thread (the measured plans), on one world.
 extern "C" int seq_scan(
     const void* mean_r, const void* cov_rr, const void* n_seen,
     const void* mm2, const void* rm6, const void* diag4, const void* seen,
     const void* mm0p, const void* zs, const void* valid, const void* ids,
     const void* R, void* mean_r_o, void* cov_rr_o, void* n_seen_o,
     void* mm2_o, void* rm6_o, void* diag4_o, void* seen_o, void* Kb,
-    void* HSb, void* CRb, void* gb, void* kindb, int n, int m,
+    void* HSb, void* CRb, void* gb, void* kindb, int n, int m, int batch,
     int wrap_innovation, int symmetrize, int known, float match_gate,
     float new_gate, int cluster, int threads, int lanes, int ring,
     int hist_smem, void* stamps, void* stream) {
-  if (n <= 0 || m <= 0 || m > kMaxMeas || (known && ids == nullptr))
+  if (n <= 0 || m <= 0 || m > kMaxMeas || (known && ids == nullptr) ||
+      batch <= 0 || batch > 65535 || (stamps != nullptr && batch != 1))
     return (int)cudaErrorInvalidValue;
   const bool pow2 = cluster >= 1 && cluster <= 16 &&
                     (cluster & (cluster - 1)) == 0;
@@ -919,21 +971,37 @@ extern "C" int seq_scan(
   // threads); 8 lanes at 1024 threads for the largest maps
   if (stamps != nullptr) {
     if (threads > 512 || lanes > 2) return (int)cudaErrorInvalidValue;
-    e = lanes == 1 ? launch<1, 512, true>(p, threads, smem, st)
-                   : launch<2, 512, true>(p, threads, smem, st);
+    e = lanes == 1 ? launch<1, 512, true>(p, batch, threads, smem, st)
+                   : launch<2, 512, true>(p, batch, threads, smem, st);
   } else if (threads > 512) {
     if (lanes != 8) return (int)cudaErrorInvalidValue;
-    e = launch<8, 1024>(p, threads, smem, st);
+    e = launch<8, 1024>(p, batch, threads, smem, st);
   } else if (lanes == 1) {
-    e = launch<1, 512>(p, threads, smem, st);
+    e = launch<1, 512>(p, batch, threads, smem, st);
   } else if (lanes == 2) {
-    e = launch<2, 512>(p, threads, smem, st);
+    e = launch<2, 512>(p, batch, threads, smem, st);
   } else if (lanes == 4) {
-    e = launch<4, 512>(p, threads, smem, st);
+    e = launch<4, 512>(p, batch, threads, smem, st);
   } else {
-    e = launch<8, 512>(p, threads, smem, st);
+    e = launch<8, 512>(p, batch, threads, smem, st);
   }
   return (int)e;
+}
+
+// How many clusters of `cluster` CTAs of the instance that launches with
+// `threads` threads of `lanes` lanes, `ring` row slots and the history in
+// shared memory or not fit on the card at once (negative: an error code).
+extern "C" int seq_scan_max_clusters(int cluster, int threads, int lanes,
+                                     int ring, int hist_smem, int m) {
+  const size_t smem = 4 * (size_t)threads * lanes * 4 *
+                      ((size_t)ring + (hist_smem ? (size_t)m : 0));
+  if (threads > 512) return max_clusters<8, 1024>(cluster, threads, smem);
+  switch (lanes) {
+    case 1: return max_clusters<1, 512>(cluster, threads, smem);
+    case 2: return max_clusters<2, 512>(cluster, threads, smem);
+    case 4: return max_clusters<4, 512>(cluster, threads, smem);
+    default: return max_clusters<8, 512>(cluster, threads, smem);
+  }
 }
 
 // Launches the probe above (see there). `buf` holds 2 * words ints, the

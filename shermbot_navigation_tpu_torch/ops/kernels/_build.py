@@ -41,9 +41,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> (source stem in csrc/, argtypes); restype is int.
 SIGNATURES = {
-    "grid_update": ("grid_update", [_P] * 7 + [_I] * 4 + [_P]),
+    "grid_update": ("grid_update", [_P] * 7 + [_I] * 5 + [_P]),
     "seq_scan": ("seq_scan",
-                 [_P] * 24 + [_I] * 5 + [_F] * 2 + [_I] * 5 + [_P] * 2),
+                 [_P] * 24 + [_I] * 6 + [_F] * 2 + [_I] * 5 + [_P] * 2),
+    "seq_scan_max_clusters": ("seq_scan", [_I] * 6),
     "seq_scan_probe": ("seq_scan", [_I] * 4 + [_P, _I, _P]),
     "cov_update": ("cov_update", [_P] * 8 + [_I] + [_P]),
     "circle_moments": ("circle_fit", [_P] * 5 + [_I] * 2 + [_P]),

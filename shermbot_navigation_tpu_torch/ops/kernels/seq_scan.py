@@ -27,13 +27,17 @@ measurement remain with known association, three with unknown (the
 first-hit reduction, an integer minimum). :func:`launch_plan` chooses the
 cluster size, the threads, the lanes a thread, the ring depth and where
 the history lives, from (N, M) alone; every output is bit-equal across
-cluster sizes. It uses libm-accurate ``atan2f``/``sinf``/``cosf``.
+cluster sizes. B worlds (operands with a leading B) take one launch of B
+clusters, one a world. It uses libm-accurate ``atan2f``/``sinf``/``cosf``.
 :func:`reference_seq_scan` is the plain version: a twin of the XLA scan
 body of the JAX ``_make_sharded_deferred`` at map=1, which reads exact
 grid columns.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -55,7 +59,8 @@ STATIC_SMEM = 4096              # the kernel's static shared state, rounded up
 
 
 def launch_plan(N: int, M: int, known: bool = True,
-                cluster: int | None = None) -> dict:
+                cluster: int | None = None, *, batch: int = 1,
+                max_active=None) -> dict:
     """How the CUDA kernel is launched for a map of N lanes and M
     measurements: a pure function, the only place the choice is made.
 
@@ -75,16 +80,39 @@ def launch_plan(N: int, M: int, known: bool = True,
     ``MAX_CLUSTER`` that leaves a CTA ``MIN_LANES_PER_CTA`` lanes: the
     scalar chain is replicated in every warp, so few warps a CTA keep it
     at its latency, and unknown association's scoring of every seen lane
-    spreads over the CTAs.
+    spreads over the CTAs. A launch of ``batch`` worlds runs one cluster a
+    world; where the card cannot hold ``batch`` clusters of the default
+    size at once (``max_active(plan)``: how many clusters of a plan fit,
+    ``cudaOccupancyMaxActiveClusters``), the largest smaller cluster
+    whose ``batch`` clusters all fit is taken, if one does (a smaller
+    cluster gives each thread more lanes and so holds more of a world in
+    the same registers). The outputs do not depend on the choice.
     """
-    if N < 1 or not 1 <= M <= MAX_MEAS:
-        raise ValueError(f"seq_scan plan: N >= 1 and 1 <= M <= {MAX_MEAS}, "
-                         f"got N={N}, M={M}")
-    if cluster is None:
-        cluster = 1
-        while (cluster < MAX_CLUSTER
-               and -(-N // (2 * cluster)) >= MIN_LANES_PER_CTA):
-            cluster *= 2
+    if N < 1 or not 1 <= M <= MAX_MEAS or batch < 1:
+        raise ValueError(f"seq_scan plan: N >= 1, 1 <= M <= {MAX_MEAS} and "
+                         f"batch >= 1, got N={N}, M={M}, batch={batch}")
+    if cluster is not None:
+        return _plan(N, M, known, cluster)
+    cluster = 1
+    while (cluster < MAX_CLUSTER
+           and -(-N // (2 * cluster)) >= MIN_LANES_PER_CTA):
+        cluster *= 2
+    plan = _plan(N, M, known, cluster)
+    if max_active is None or batch == 1 or batch <= max_active(plan):
+        return plan
+    while cluster > 1:
+        cluster //= 2
+        try:
+            smaller = _plan(N, M, known, cluster)
+        except ValueError:
+            break
+        if batch <= max_active(smaller):
+            return smaller
+    return plan
+
+
+def _plan(N: int, M: int, known: bool, cluster: int) -> dict:
+    """:func:`launch_plan` for a given cluster size."""
     if cluster not in (1, 2, 4, 8, 16) or cluster > MAX_CLUSTER:
         raise ValueError(f"seq_scan plan: cluster {cluster} is not a power "
                          f"of two up to {MAX_CLUSTER}")
@@ -114,6 +142,23 @@ def launch_plan(N: int, M: int, known: bool = True,
     return {"cluster": cluster, "threads": threads, "lanes": lanes,
             "per_cta": per_cta, "ring": ring, "hist_smem": hist_smem,
             "smem_bytes": slot_bytes * (ring + (M if hist_smem else 0))}
+
+
+@functools.cache
+def _max_active(cluster, threads, lanes, ring, hist_smem, m) -> int:
+    n = library().seq_scan_max_clusters(cluster, threads, lanes, ring,
+                                        int(hist_smem), m)
+    if n < 0:
+        check("seq_scan_max_clusters", -n)
+    return n
+
+
+def max_active_clusters(plan: dict, M: int) -> int:
+    """How many clusters of ``plan`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters`` on the kernel instance the plan
+    launches); card only."""
+    return _max_active(plan["cluster"], plan["threads"], plan["lanes"],
+                       plan["ring"], plan["hist_smem"], M)
 
 
 def plan_lanes(plan: dict, N: int) -> torch.Tensor:
@@ -307,47 +352,59 @@ def kernel_operands(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p, zs,
                     valid, ids, R, known: bool = True):
     """What the CUDA kernel takes: f32 strips and planes, bool ``seen`` and
     ``valid``, int32 ``n_seen`` and ``ids``, the shapes of
-    :func:`deferred_seq_scan`, all on ``mm2``'s device, 1 <= M <= 64.
-    Raises ``ValueError`` otherwise; returns (contiguous operands by name,
-    N, M). Needs no card."""
+    :func:`deferred_seq_scan` for one world, or each but ``R`` with a
+    leading B, all on ``mm2``'s device, 1 <= M <= 64. Raises
+    ``ValueError`` otherwise; returns (contiguous operands by name, each
+    but ``R`` with the leading B, 1 for one world; N, M). Needs no card."""
     name = "seq_scan"
-    require(mm2.dim() == 2 and zs.dim() == 2, name,
-            f"mm2 (2, N) and zs (M, 2), got {tuple(mm2.shape)} and "
-            f"{tuple(zs.shape)}")
-    N, M = mm2.shape[1], zs.shape[0]
+    require(mm2.dim() in (2, 3) and zs.dim() == mm2.dim(), name,
+            f"mm2 (2, N) and zs (M, 2), or each with a leading B, got "
+            f"{tuple(mm2.shape)} and {tuple(zs.shape)}")
+    per_world = [mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p, zs,
+                 valid, ids]
+    if mm2.dim() == 2:
+        per_world = [None if x is None else x[None] for x in per_world]
+    (mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p, zs, valid,
+     ids) = per_world
+    B, N, M = mm2.shape[0], mm2.shape[2], zs.shape[1]
     require(1 <= M <= MAX_MEAS, name, f"1 <= M <= {MAX_MEAS}, got M={M}")
     f32, i32 = torch.float32, torch.int32
-    spec = {"mean_r": (mean_r, (3,), f32), "mm2": (mm2, (2, N), f32),
-            "cov_rr": (cov_rr, (3, 3), f32), "rm6": (rm6, (6, N), f32),
-            "diag4": (diag4, (4, N), f32), "seen": (seen, (N,), torch.bool),
-            "n_seen": (n_seen, (), i32), "mm0p": (mm0p, (4, N, N), f32),
-            "zs": (zs, (M, 2), f32), "valid": (valid, (M,), torch.bool),
+    spec = {"mean_r": (mean_r, (B, 3), f32), "mm2": (mm2, (B, 2, N), f32),
+            "cov_rr": (cov_rr, (B, 3, 3), f32),
+            "rm6": (rm6, (B, 6, N), f32), "diag4": (diag4, (B, 4, N), f32),
+            "seen": (seen, (B, N), torch.bool),
+            "n_seen": (n_seen, (B,), i32), "mm0p": (mm0p, (B, 4, N, N), f32),
+            "zs": (zs, (B, M, 2), f32), "valid": (valid, (B, M), torch.bool),
             "R": (R, (2, 2), f32)}
     if known:
         require(ids is not None, name, "known association needs ids")
-        spec["ids"] = (ids, (M,), i32)
+        spec["ids"] = (ids, (B, M), i32)
     return checked_operands(name, mm2.device, spec), N, M
 
 
 def _launch(ops, N, M, plan, known, match_gate, new_gate, wrap_innovation,
             symmetrize, stamps=None):
     """Allocate the twelve outputs and launch ``csrc/seq_scan.cu`` on the
-    checked operands ``ops`` under ``plan``; ``stamps`` selects the clocked
-    instance (:func:`phase_clock`)."""
+    checked operands ``ops`` (B worlds) under ``plan``; ``stamps`` selects
+    the clocked instance (:func:`phase_clock`, B = 1). The outputs have
+    the leading B."""
     dev = ops["mm2"].device
+    B = ops["mm2"].shape[0]
     f32, i32 = torch.float32, torch.int32
     # three allocations for the twelve outputs (the wrapper's host time is
     # most of a call): the f32 outputs are views of one buffer, the int32
     # ones of another
-    sizes = (3, 2 * N, 9, 6 * N, 4 * N, 4 * M * N, 4 * M * N, 4 * M * N)
+    shapes = ((B, 3), (B, 2, N), (B, 3, 3), (B, 6, N), (B, 4, N),
+              (B, M, 4, N), (B, M, 4, N), (B, M, 4, N))
+    sizes = [math.prod(shape) for shape in shapes]
     fbuf = torch.empty(sum(sizes), dtype=f32, device=dev)
     mr_o, mm2_o, crr_o, rm6_o, dg_o, Kb, HSb, CRb = (
-        t.view(shape) for t, shape in zip(
-            fbuf.split(sizes), ((3,), (2, N), (3, 3), (6, N), (4, N),
-                                (M, 4, N), (M, 4, N), (M, 4, N))))
-    ibuf = torch.empty(2 * M + 1, dtype=i32, device=dev)
-    ns_o, gb, kb = ibuf[0], ibuf[1:M + 1], ibuf[M + 1:]
-    seen_o = torch.empty(N, dtype=torch.bool, device=dev)
+        t.view(shape) for t, shape in zip(fbuf.split(sizes), shapes))
+    ibuf = torch.empty(B * (2 * M + 1), dtype=i32, device=dev)
+    ns_o = ibuf[:B]
+    gb = ibuf[B:B * (M + 1)].view(B, M)
+    kb = ibuf[B * (M + 1):].view(B, M)
+    seen_o = torch.empty((B, N), dtype=torch.bool, device=dev)
     ptr = {k: t.data_ptr() for k, t in ops.items()}
     code = library().seq_scan(
         ptr["mean_r"], ptr["cov_rr"], ptr["n_seen"], ptr["mm2"], ptr["rm6"],
@@ -355,7 +412,7 @@ def _launch(ops, N, M, plan, known, match_gate, new_gate, wrap_innovation,
         ptr.get("ids"), ptr["R"], mr_o.data_ptr(), crr_o.data_ptr(),
         ns_o.data_ptr(), mm2_o.data_ptr(), rm6_o.data_ptr(), dg_o.data_ptr(),
         seen_o.data_ptr(), Kb.data_ptr(), HSb.data_ptr(), CRb.data_ptr(),
-        gb.data_ptr(), kb.data_ptr(), N, M, int(bool(wrap_innovation)),
+        gb.data_ptr(), kb.data_ptr(), N, M, B, int(bool(wrap_innovation)),
         int(bool(symmetrize)), int(bool(known)), float(match_gate),
         float(new_gate), plan["cluster"], plan["threads"], plan["lanes"],
         plan["ring"], int(plan["hist_smem"]),
@@ -372,41 +429,62 @@ def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
                       symmetrize: bool = True,
                       use_kernel: bool | None = None, gate_margins=None,
                       cluster: int | None = None):
-    """Run the tick's measurement scan (single robot, comp layouts).
+    """Run the tick's measurement scan (comp layouts), for one robot or
+    for B worlds at once.
 
     Args: mean_r (3,), mm2 (2, N), cov_rr (3, 3), rm6 (6, N), diag4 (4, N),
     seen (N,) bool, n_seen () int32, mm0p (4, N, N) -- the frozen
     post-predict grid planes as carried in ``BlockedState``, zs (M, 2),
     valid (M,) bool, ids (M,) int32 (known association; may be ``None``
-    when ``known=False``), R (2, 2). ``match_gate`` / ``new_gate`` are the
-    first-hit gates of unknown association.
+    when ``known=False``), R (2, 2); or each but ``R`` with a leading B.
+    ``match_gate`` / ``new_gate`` are the first-hit gates of unknown
+    association.
 
     Returns (mean_r', mm2', cov_rr', rm6', diag4', seen', n_seen',
-    Kb (M, 4, N), HSb (M, 4, N), CRb (M, 4, N), gb (M,), kindb (M,)).
+    Kb (M, 4, N), HSb (M, 4, N), CRb (M, 4, N), gb (M,), kindb (M,)),
+    each with the leading B for B worlds.
 
     ``use_kernel`` follows the package rule (``ops/kernels/__init__.py``):
     auto launches the CUDA kernel for CUDA operands (f32 only; anything
-    else raises) and the plain version on the CPU.
-    ``deferred_seq_scan.launches`` counts kernel launches.
-    ``gate_margins`` is :func:`reference_seq_scan`'s (plain version only).
+    else raises) and the plain version on the CPU. The kernel takes B
+    worlds in one launch, a cluster a world; the plain version runs the
+    worlds one after another. ``deferred_seq_scan.launches`` counts
+    kernel launches. ``gate_margins`` is :func:`reference_seq_scan`'s
+    (plain version only; (B,) a measurement for B worlds).
     ``cluster`` overrides :func:`launch_plan`'s cluster size (kernel only;
     the outputs do not depend on it).
     """
     name = "seq_scan"
+    batched = mm2.dim() == 3
     if not wants_kernel(mm2, use_kernel, name):
-        return reference_seq_scan(
-            mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p, zs, valid,
-            ids, R, known=known, match_gate=match_gate, new_gate=new_gate,
-            wrap_innovation=wrap_innovation, symmetrize=symmetrize,
-            gate_margins=gate_margins)
+        kw = dict(known=known, match_gate=match_gate, new_gate=new_gate,
+                  wrap_innovation=wrap_innovation, symmetrize=symmetrize)
+        if not batched:
+            return reference_seq_scan(
+                mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p, zs,
+                valid, ids, R, gate_margins=gate_margins, **kw)
+        worlds, margins = [], []
+        for b in range(mm2.shape[0]):
+            margins.append([] if gate_margins is not None else None)
+            worlds.append(reference_seq_scan(
+                mean_r[b], mm2[b], cov_rr[b], rm6[b], diag4[b], seen[b],
+                n_seen[b], mm0p[b], zs[b], valid[b],
+                None if ids is None else ids[b], R,
+                gate_margins=margins[-1], **kw))
+        if gate_margins is not None:
+            gate_margins.extend(torch.stack(g) for g in zip(*margins))
+        return tuple(torch.stack(outs) for outs in zip(*worlds))
     require(gate_margins is None, name, "gate_margins needs the plain "
             "version")
     ops, N, M = kernel_operands(mean_r, mm2, cov_rr, rm6, diag4, seen,
                                 n_seen, mm0p, zs, valid, ids, R, known)
-    outs = _launch(ops, N, M, launch_plan(N, M, known, cluster), known,
-                   match_gate, new_gate, wrap_innovation, symmetrize)
+    B = ops["mm2"].shape[0]
+    plan = launch_plan(N, M, known, cluster, batch=B,
+                       max_active=lambda pl: max_active_clusters(pl, M))
+    outs = _launch(ops, N, M, plan, known, match_gate, new_gate,
+                   wrap_innovation, symmetrize)
     deferred_seq_scan.launches += 1
-    return outs
+    return outs if batched else tuple(x[0] for x in outs)
 
 
 deferred_seq_scan.launches = 0
@@ -422,16 +500,19 @@ def phase_clock(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p, zs,
     """Where a measurement's time goes, layer by layer: run the scan's
     clocked instance (the same kernel, which also records the SM clock at
     the end of each phase; plans of 1 or 2 lanes a thread) on the operands
-    of :func:`deferred_seq_scan`, card only. Returns ``(outputs, cycles)``,
-    ``cycles`` (M, 7) float64: SM cycles measurement j spent in each of
-    ``PHASES``, as thread 0 of CTA 0 saw them."""
+    of :func:`deferred_seq_scan` for one robot, card only. Returns
+    ``(outputs, cycles)``, ``cycles`` (M, 7) float64: SM cycles
+    measurement j spent in each of ``PHASES``, as thread 0 of CTA 0 saw
+    them."""
+    require(mm2.dim() == 2, "seq_scan", "the phase clock runs one robot")
     ops, N, M = kernel_operands(mean_r, mm2, cov_rr, rm6, diag4, seen,
                                 n_seen, mm0p, zs, valid, ids, R, known)
     require(mm2.is_cuda, "seq_scan", "the phase clock runs on the card")
     stamps = torch.zeros(M, 8, dtype=torch.int64, device=mm2.device)
     outs = _launch(ops, N, M, launch_plan(N, M, known), known, 0.01, 60.0,
                    False, True, stamps)
-    return outs, (stamps[:, 1:] - stamps[:, :-1]).double()
+    return (tuple(x[0] for x in outs),
+            (stamps[:, 1:] - stamps[:, :-1]).double())
 
 
 PROBE_MODES = {"barrier": 0, "dependent_read": 1, "scalar_chain": 2}

@@ -1,13 +1,17 @@
-"""Large synthetic-map workload (BASELINE config 4) at batch 1 (port of
-``shermbot_navigation_tpu.parallel.bigmap``).
+"""Large synthetic-map workload (BASELINE config 4) for B worlds (port of
+``shermbot_navigation_tpu.parallel.bigmap`` at map=1).
 
-One robot drives a constant-twist arc over a grid of N landmarks; each tick
-it observes M landmarks from a schedule that sweeps the whole map (with
-known ids every landmark is initialized in the first ceil(N/M) ticks and
-only updated after that). Ground truth is the closed-form arc, and each
-tick's measurements are generated on the state's device from it.
-:func:`make_runner` associates by id; :func:`make_unknown_runner` drops
-the ids and associates by the reference's Mahalanobis first-hit gates.
+One robot a world drives a constant-twist arc over a grid of N landmarks;
+each tick it observes M landmarks from a schedule that sweeps the whole
+map (with known ids every landmark is initialized in the first ceil(N/M)
+ticks and only updated after that). Ground truth is the closed-form arc,
+and each tick's measurements are generated on the state's device from it
+and broadcast to every world, as in the JAX package. :func:`make_runner`
+associates by id; :func:`make_unknown_runner` drops the ids and associates
+by the reference's Mahalanobis first-hit gates. Either runs the deferred
+tick (one grid pass a tick, the default) or the sequential one
+(``deferred=False``: one grid pass a measurement), on one card; map
+shards over several devices are ROADMAP queue 5.
 
 The kernels route as in ``ops/kernels``: the CUDA kernels for a state on
 the card, the plain versions for a state on the CPU.
@@ -84,43 +88,59 @@ def measurements(wl: BigMapWorkload, t: int):
     return zs, ids, wl.cmd[t % wl.cmd.shape[0]]
 
 
-def make_runner(cfg: EKFConfig, M: int, device,
-                seq_kernel: bool | None = None,
+def _make_step(cfg, M, device, known, deferred, seq_kernel, grid_kernel,
+               gate_margins=None):
+    if deferred:
+        return blocked_ekf.make_deferred_step(
+            cfg, M, device, known=known, seq_kernel=seq_kernel,
+            grid_kernel=grid_kernel, gate_margins=gate_margins)
+    if seq_kernel or grid_kernel or gate_margins is not None:
+        raise ValueError("the sequential tick has no kernels and no gate "
+                         "margins")
+    return blocked_ekf.make_sequential_step(cfg, M, device, known=known)
+
+
+def make_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
+                deferred: bool = True, seq_kernel: bool | None = None,
                 grid_kernel: bool | None = None):
-    """Build ``run(state, workload, Q, R, t0, ticks) -> state``: the
-    deferred tick applied ``ticks`` times at batch 1, measurements made on
-    the device each tick. The grid is updated in place."""
-    step = blocked_ekf.make_deferred_step(cfg, M, device,
-                                          seq_kernel=seq_kernel,
-                                          grid_kernel=grid_kernel)
-    valid = torch.ones((1, M), dtype=torch.bool, device=device)
+    """Build ``run(state, workload, Q, R, t0, ticks) -> state``: the tick
+    applied ``ticks`` times to a state of ``batch`` worlds, the
+    measurements made on the device each tick and broadcast to every
+    world. ``deferred=True`` is ``blocked_ekf.make_deferred_step`` (the
+    kernels, once a tick for all worlds), ``False``
+    ``blocked_ekf.make_sequential_step``; the same semantics. The grid is
+    updated in place."""
+    step = _make_step(cfg, M, device, True, deferred, seq_kernel,
+                      grid_kernel)
+    valid = torch.ones((batch, M), dtype=torch.bool, device=device)
 
     def run(state, wl: BigMapWorkload, Q, R, t0: int, ticks: int):
         for t in range(t0, t0 + ticks):
             zs, ids, tw = measurements(wl, t)
-            state = step(state, tw[None], zs[None], valid, ids[None], Q, R)
+            state = step(state, tw.expand(batch, 3), zs.expand(batch, M, 2),
+                         valid, ids.expand(batch, M), Q, R)
         return state
 
     return run
 
 
-def make_unknown_runner(cfg: EKFConfig, M: int, device,
+def make_unknown_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
+                        deferred: bool = True,
                         seq_kernel: bool | None = None,
                         grid_kernel: bool | None = None, gate_margins=None):
     """Like :func:`make_runner` with UNKNOWN association: the same
-    measurements without their ids, each gated by the first-hit
-    Mahalanobis scan of the deferred unknown tick (``gate_margins`` as in
-    ``blocked_ekf.make_deferred_step``)."""
-    step = blocked_ekf.make_deferred_step(cfg, M, device, known=False,
-                                          seq_kernel=seq_kernel,
-                                          grid_kernel=grid_kernel,
-                                          gate_margins=gate_margins)
-    valid = torch.ones((1, M), dtype=torch.bool, device=device)
+    measurements without their ids, each gated by the reference's
+    first-hit Mahalanobis scan (``gate_margins`` as in
+    ``blocked_ekf.make_deferred_step``, deferred tick only)."""
+    step = _make_step(cfg, M, device, False, deferred, seq_kernel,
+                      grid_kernel, gate_margins)
+    valid = torch.ones((batch, M), dtype=torch.bool, device=device)
 
     def run(state, wl: BigMapWorkload, Q, R, t0: int, ticks: int):
         for t in range(t0, t0 + ticks):
             zs, _, tw = measurements(wl, t)
-            state = step(state, tw[None], zs[None], valid, Q, R)
+            state = step(state, tw.expand(batch, 3), zs.expand(batch, M, 2),
+                         valid, Q, R)
         return state
 
     return run
@@ -137,20 +157,19 @@ def noise(dtype=torch.float32, device=None):
 
 
 def run_bigmap(N: int = 2048, T: int = 32, M: int = 8, batch: int = 1,
-               dtype=torch.float32, device=None,
+               deferred: bool = True, dtype=torch.float32, device=None,
                seq_kernel: bool | None = None,
                grid_kernel: bool | None = None):
-    """End-to-end config-4 run at batch 1; returns (final BlockedState,
-    workload). ``device=None`` is the card (``device.resolve``)."""
+    """End-to-end config-4 run of ``batch`` worlds on one device (the JAX
+    ``run_bigmap`` on a one-device mesh; map shards are ROADMAP queue 5);
+    returns (final BlockedState, workload). ``deferred`` as in
+    :func:`make_runner`. ``device=None`` is the card
+    (``device.resolve``)."""
     device = resolve(device)
-    if batch != 1:
-        raise NotImplementedError(
-            "the port runs config 4 at batch 1; batched and map-sharded "
-            "runs are ROADMAP queue 1 item 9 / item 12")
     cfg = EKFConfig(num_landmarks=N)
     wl = make_workload(N, T, M, dtype=dtype, device=device)
-    runner = make_runner(cfg, M, device, seq_kernel=seq_kernel,
-                         grid_kernel=grid_kernel)
-    state = blocked_ekf.init(cfg, 1, dtype=dtype, device=device)
+    runner = make_runner(cfg, M, device, batch=batch, deferred=deferred,
+                         seq_kernel=seq_kernel, grid_kernel=grid_kernel)
+    state = blocked_ekf.init(cfg, batch, dtype=dtype, device=device)
     Q, R = noise(dtype, device)
     return runner(state, wl, Q, R, 0, T), wl

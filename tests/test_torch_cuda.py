@@ -24,7 +24,9 @@ states the same bound), discrete outputs exactly; across cluster sizes and
 launch plans every output must be bit-equal. The dense engine under
 ``torch.func.vmap`` and the lanes engine make the same decisions on the
 same noise and part by summation order only (poses within 1e-4 over 12
-f32 ticks of config 2).
+f32 ticks of config 2). A launch for B worlds gives each world the bits of
+its own one-world launch (no world reads another's operands), and config
+4's sequential tick makes the deferred tick's decisions at B worlds.
 """
 
 import json
@@ -43,7 +45,7 @@ from shermbot_navigation_tpu_torch.ops.kernels import circle_moments as tcm
 from shermbot_navigation_tpu_torch.ops.kernels import cov_update as tcu
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as tgu
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as tsq
-from shermbot_navigation_tpu_torch.parallel import bigmap
+from shermbot_navigation_tpu_torch.parallel import bigmap, blocked_ekf
 from shermbot_navigation_tpu_torch.pipeline import driver, serving
 from shermbot_navigation_tpu_torch.pipeline.config import get_scenario
 
@@ -661,3 +663,136 @@ def test_dense_batch_driver_and_bench_entry_default_to_the_card(dev, capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["device"].startswith(torch.cuda.get_device_name(here))
     assert row["execution"] == "eager" and row["value"] > 0
+
+
+def _worlds(args_list):
+    """One-world argument lists (``R`` last, shared) as one list of B
+    worlds."""
+    cols = list(zip(*(a[:-1] for a in args_list)))
+    return [None if c[0] is None else torch.stack(c) for c in cols] + [
+        args_list[0][-1]]
+
+
+def _scan_worlds(dev, N):
+    """Three worlds that differ for each association (states after other
+    numbers of ticks, other ids, measurements and validity)."""
+    to = lambda x: [torch.from_numpy(np.array(v)).to(dev) for v in x.values()]
+    if N == 2048:
+        both = [_card_scan_args(dev, N, 8, t) for t in (36, 40, 44)]
+        return [b[0] for b in both], [list(b[1]) for b in both]
+    known = [to(scan_inputs(N, 4, ids, valid, ticks=t)) for ids, valid, t in
+             (([60, 5, 60, 3], [1, 1, 1, 1], 24),
+              ([64, 61, -1, 7], [1, 1, 1, 0], 26),
+              ([2, 2, 9, 57], [1, 0, 1, 1], 30))]
+    unknown = []
+    for full, plan in UNKNOWN_PLANS + [
+            (False, [("new", 11), ("match", 2), ("invalid", 0),
+                     ("skip", 4)])]:
+        args = to(unknown_scan_inputs(N, 4, plan, full=full))
+        args[10] = None
+        unknown.append(args)
+    return known, unknown
+
+
+@pytest.mark.parametrize("N", [64, 2048])
+def test_seq_scan_batched_worlds_equal_their_own_launches(dev, N):
+    """One launch for three worlds that differ: each world's twelve
+    outputs are bit-equal to its own one-world launch (a cluster a world,
+    none reads another's operands), and held to the plain version as the
+    one-world scan is."""
+    known, unknown = _scan_worlds(dev, N)
+    for worlds, kw in ((known, {}), (unknown, {"known": False})):
+        before = tsq.deferred_seq_scan.launches
+        got = tsq.deferred_seq_scan(*_worlds(worlds), **kw)
+        torch.cuda.synchronize()
+        assert tsq.deferred_seq_scan.launches == before + 1
+        want = tsq.deferred_seq_scan(*_worlds(worlds), use_kernel=False, **kw)
+        for b, args in enumerate(worlds):
+            alone = tsq.deferred_seq_scan(*args, **kw)
+            for name, g, w in zip(NAMES, got, alone):
+                assert torch.equal(g[b], w), (b, name)
+            close = _scale_close if N == 2048 else _assert_scan_close
+            close([x[b] for x in got], [x[b] for x in want])
+        slots = {tuple(g) for g in got[-2].tolist()}
+        assert len(slots) > 1, slots
+
+
+@pytest.mark.parametrize("Nl,N,M", [(256, 512, 8), (48, 50, 3)])
+def test_grid_update_batched_worlds_equal_their_own_launches(dev, Nl, N, M):
+    """One launch for three worlds of other operands (a ragged shape
+    too): each world bit-equal to its own launch, all within the plain
+    version's tolerance."""
+    worlds = [[torch.from_numpy(x).to(dev) for x in
+               grid_operands(Nl, N, M, seed=s, dtype=np.float32)]
+              for s in (3, 4, 5)]
+    ops = [torch.stack(c) for c in zip(*worlds)]
+    before = tgu.fused_grid_update.launches
+    got = tgu.fused_grid_update(ops[0].clone(), *ops[1:])
+    torch.cuda.synchronize()
+    assert tgu.fused_grid_update.launches == before + 1
+    torch.testing.assert_close(got, tgu.reference_grid_update(*ops), rtol=0,
+                               atol=1e-4)
+    for b, w in enumerate(worlds):
+        assert torch.equal(got[b], tgu.fused_grid_update(w[0].clone(),
+                                                         *w[1:])), b
+
+
+def test_one_world_launch_is_a_batch_of_one(dev):
+    """The one-world forms of both kernels launch what a batch of one
+    launches, bit for bit."""
+    g = [torch.from_numpy(x).to(dev) for x in
+         grid_operands(256, 512, 8, seed=6, dtype=np.float32)]
+    one = tgu.fused_grid_update(g[0].clone(), *g[1:])
+    batch = tgu.fused_grid_update(g[0][None].clone(), *(x[None] for x in g[1:]))
+    assert torch.equal(one, batch[0])
+    known, unknown = _scan_worlds(dev, 64)
+    for args, kw in ((known[0], {}), (unknown[0], {"known": False})):
+        one = tsq.deferred_seq_scan(*args, **kw)
+        batch = tsq.deferred_seq_scan(*_worlds([args]), **kw)
+        for name, a, b in zip(NAMES, one, batch):
+            assert a.shape == b.shape[1:] and torch.equal(a, b[0]), name
+
+
+def test_bigmap_worlds_on_the_card(dev):
+    """``run_bigmap(batch=3)`` through the kernels: every world bit-equal
+    to ``run_bigmap(batch=1)``, each kernel launched once a tick; and the
+    sequential tick at batch 3 makes the deferred tick's decisions, known
+    and unknown, the state within f32 summation-order distance (the CPU
+    f32 runs at this size part by <= 1.2e-7 m on the means and 5e-7 on the
+    grid; bounds 1e-5 and 1e-5 of scale)."""
+    N, T, M = 256, 40, 8
+    one, _ = bigmap.run_bigmap(N=N, T=T, M=M, device=dev)
+    g0, s0 = tgu.fused_grid_update.launches, tsq.deferred_seq_scan.launches
+    three, _ = bigmap.run_bigmap(N=N, T=T, M=M, batch=3, device=dev)
+    torch.cuda.synchronize()
+    assert tgu.fused_grid_update.launches - g0 == T
+    assert tsq.deferred_seq_scan.launches - s0 == T
+    for f in one._fields:
+        for b in range(3):
+            assert torch.equal(getattr(three, f)[b], getattr(one, f)[0]), f
+    cfg = EKFConfig(num_landmarks=N)
+    wl = bigmap.make_workload(N, T, M, device=dev)
+    Q, R = bigmap.noise(device=dev)
+    for make in (bigmap.make_runner, bigmap.make_unknown_runner):
+        a, b = (make(cfg, M, dev, batch=3, deferred=d)(
+            blocked_ekf.init(cfg, 3, device=dev), wl, Q, R, 0, T)
+            for d in (True, False))
+        assert torch.equal(a.n_seen, b.n_seen) and torch.equal(a.seen, b.seen)
+        for f in ("mean_r", "mean_m", "cov_rr", "cov_rm"):
+            torch.testing.assert_close(getattr(a, f), getattr(b, f), rtol=0,
+                                       atol=1e-5, msg=f)
+        seen = a.seen[0]
+        for f, x, y in (("diag4", a.diag4[:, :, seen], b.diag4[:, :, seen]),
+                        ("cov_mm", a.cov_mm[:, :, :, seen][..., seen],
+                         b.cov_mm[:, :, :, seen][..., seen])):
+            bound = 1e-5 * max(1.0, float(y.abs().max()))
+            torch.testing.assert_close(x, y, rtol=0, atol=bound, msg=f)
+
+
+def test_seq_scan_occupancy_query(dev):
+    """The card's answer to how many scan clusters fit at once, which
+    ``launch_plan`` reads at B > 1: at least one for every cluster size
+    that holds the map, and more for one CTA a world than for eight."""
+    fits = [tsq.max_active_clusters(tsq.launch_plan(2048, 8, cluster=c), 8)
+            for c in (8, 4, 2, 1)]
+    assert min(fits) >= 1 and fits[-1] > fits[0], fits
