@@ -4,8 +4,10 @@ unknown-association serving, the dense EKF engine, config 3
 (``lidar20_full``: lidar sim, clustering, circle fit, batch-trailing EKF)
 at B=1024 worlds with the buffered perception path beside it, configs
 1 and 2 (``loop5_known``, ``course12_noisy``: the fake sensor, the bench
-entry's path) on both batched engines, with the batch sweep, and config 4
-(``run_bigmap``) for 8 worlds, deferred and sequential.
+entry's path) on both batched engines, with the batch sweep, config 4
+(``run_bigmap``) for 8 worlds, deferred and sequential, and config 5
+(``run_megamap``: loop closure and map-sharded Schur refinement of a
+50,000-landmark map).
 
     python3 chip_smoke.py
 
@@ -132,7 +134,7 @@ It imports nothing of JAX. Phases, one JSON line each:
    (never a pooled RMSE); then ``run_scenario_batch`` on the first 100
    ticks of the first 256 worlds against the lanes run; (d)
    ``course12_tuned`` at B=2048: no world may diverge; (e) config 1's
-   batch sweep on the lanes engine from B=256 by 4x past 262144 while
+   batch sweep on the lanes engine from B=4096 by 4x past 262144 while
    world x ticks / s grows by more than 10% and a full run's outputs fit,
    the saturation point, and ``torch.profiler`` over 4 ticks of each
    config on each engine: device kernels a tick, busy ms, idle share.
@@ -159,6 +161,23 @@ It imports nothing of JAX. Phases, one JSON line each:
    ``torch.profiler``; both kernels at B=8 by CUDA events and profiler
    beside their plain versions, bounds and (grid pass) ``torch.baddbmm``,
    and the scan's latency floor under its batched plan.
+19. config5 -- BASELINE config 5 at ``bench_megamap.py``'s budget:
+   ``run_megamap(N=50000, T=512, obs_per_pose=97, pg_iters=5,
+   gn_iters=12, cg_iters=64)`` (148,992 observations), stage 1 on the
+   host in f64, stage 2 on the card, with every kernel counter set to 0
+   just before and read just after (config 5 runs no kernel: all must
+   stay 0). Held to ``tests/fixtures/megamap_golden.json`` (JAX, one map
+   shard, CPU): f32 pose ATE < 0.13 m and within 1e-3 m of the fixture's,
+   landmark RMSE < 0.15 m; the stage-1 poses bit for bit in f32 and f64;
+   f64 stage 2 on the card on 1 and on 4 map shards, poses and every 50th
+   landmark within 1e-8 m of the f64 fixture and of each other. Printed:
+   a second f32 stage 2's largest difference from the first (the
+   scatter-adds' atomics are unordered), the JSON row of ``python -m
+   shermbot_navigation_tpu_torch.bench_megamap`` run in its own process
+   (seconds of each stage and a GN step), and one GN step by
+   ``torch.profiler`` at 64 and 32 CG iterations: device kernels (a CG
+   iteration's from the difference), the runtime's kernel launches, busy
+   ms, and the idle share against the bench entry's GN step.
 
 Then the card line as nvidia-smi prints it, the kernels line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -181,8 +200,9 @@ import numpy as np
 import torch
 
 import shermbot_navigation_tpu_torch  # noqa: F401  (pins f32 on the card)
-from shermbot_navigation_tpu_torch import bench
+from shermbot_navigation_tpu_torch import bench, bench_megamap
 from shermbot_navigation_tpu_torch.models import ekf_batch, ekf_slam
+from shermbot_navigation_tpu_torch.models import pose_graph
 from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
 from shermbot_navigation_tpu_torch.ops import circle_fit, clustering
 from shermbot_navigation_tpu_torch.ops import diff_drive, se2, smallalg
@@ -196,17 +216,20 @@ from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as sq
 from shermbot_navigation_tpu_torch.ops.landmark_detection import (
     detect_landmarks)
 from shermbot_navigation_tpu_torch.parallel import bigmap, blocked_ekf
+from shermbot_navigation_tpu_torch.parallel import megamap, schur_dist
 from shermbot_navigation_tpu_torch.pipeline import driver, serving
 from shermbot_navigation_tpu_torch.pipeline.config import get_scenario
 from shermbot_navigation_tpu_torch.sim import tube_world
 
 ROOT = Path(__file__).resolve().parent
 PKG = "shermbot_navigation_tpu_torch"
+START = time.perf_counter()
 FIXTURES = ROOT / "tests" / "fixtures"
 GOLDEN = FIXTURES / "serving_n2048_golden.json"
 GOLDEN_UNKNOWN = FIXTURES / "serving_unknown_n2048_golden.json"
 GOLDEN_DENSE = FIXTURES / "dense_n2048_golden.json"
 GOLDEN_LIDAR = FIXTURES / "lidar20_golden.json"
+GOLDEN_MEGAMAP = FIXTURES / "megamap_golden.json"
 GOLDEN_LOOP5 = FIXTURES / "loop5_golden.json"
 GOLDEN_COURSE12 = FIXTURES / "course12_golden.json"
 N, M, T = 2048, 8, 320
@@ -396,7 +419,9 @@ CONFIG1_ATE_TOL = 1e-4         # against the JAX f32 and C++ ATE, every world
 CONFIG2_DET_ATE_TOL = 1e-3     # config 2's deterministic world against JAX
 CONFIG2_EARLY = 300    # no fixture world of config 2 parts before this tick
 PARTING_WINDOW = 10    # ticks before a parting searched for its gate margin
-SWEEP_BATCHES = (256, 1024, 4096, 16384, 65536, 262144)
+# from 4096: B=256 and 1024 (30-40 ms a tick, host-bound like 4096 to
+# 65536) are left out to keep the whole run near 600 s
+SWEEP_BATCHES = (4096, 16384, 65536, 262144)
 SWEEP_TICKS = 20       # timed ticks a sweep point, after 2 warm ticks
 SWEEP_GROWTH = 1.10    # a 4x larger batch must gain this much to go on
 PROFILE_TICKS = 4
@@ -427,6 +452,24 @@ N4_LARGE = 8192                # the map timed at B4 (grid 8.6 GB)
 # update moves a field by a fraction of its scale and a changed decision
 # is caught exactly.
 DEFERRED_SEQ_TOL = SCAN_TOL_ROW_FOR_COLUMN
+
+# Phase 19, config 5: BASELINE config 5 at benchmarks/bench_megamap.py's
+# budget (the JAX package's test_fullscale_f32_budget_reaches_f64_floor),
+# held to tests/fixtures/megamap_golden.json (JAX run_megamap, one map
+# shard, CPU, f32 and f64). Bounds: the JAX package's full-scale pins for
+# f32 (pose ATE < 0.13 m, landmark RMSE < 0.15 m), the f32 ATE within
+# 1e-3 m of the fixture's (f32 summation order over 768 CG matvecs: the
+# JAX package's own CPU sweep finds f32 and f64 1e-4 m apart at this
+# budget); f64 poses and the fixture's strided landmarks within 1e-8 m
+# (the JAX package's shard-invariance bound), and 4 map shards against 1
+# within the same; stage 1 (host numpy) bit for bit.
+CONFIG5 = dict(N=50000, T=512, obs_per_pose=97, pg_iters=5, gn_iters=12,
+               cg_iters=64)
+CONFIG5_ATE = 0.13
+CONFIG5_LM_RMSE = 0.15
+CONFIG5_GOLD_ATE_TOL = 1e-3
+CONFIG5_F64_TOL = 1e-8
+CONFIG5_SHARDS = 4
 
 KERNELS = {
     "grid_update": {
@@ -472,7 +515,9 @@ TAIL_FLOPS = 2 * (48 * (75 + 3 * 20) + 32) + 380
 
 
 def emit(**obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps(dict(obj, elapsed_s=time.perf_counter() - START)),
+          flush=True)
 
 
 def fail(msg: str):
@@ -1715,6 +1760,25 @@ def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
     return launches["circle_fit"], launches_tf["circle_moments"]
 
 
+def device_rows(prof):
+    """(key, count, device µs) of the events that ran on the device
+    (kernels, copies, fills) in ``prof.key_averages()``. The CUDA runtime
+    calls that launched them (``cudaLaunchKernel``, ...) are host-side rows
+    of the same profile, with no device time of their own: counted in, they
+    would about double the kernel counts."""
+    return [(ev.key, ev.count, getattr(ev, "device_time_total",
+                                       getattr(ev, "cuda_time_total", 0)))
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def host_launches(prof) -> int:
+    """The CUDA runtime's kernel launches in a profile (host-side rows)."""
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type != torch.autograd.DeviceType.CUDA
+               and ev.key.startswith("cudaLaunchKernel"))
+
+
 def profiled_device_ms(fn, kernel: str, calls: int):
     """Device time of one launch of the kernel whose name holds
     ``kernel``, from ``torch.profiler`` over ``calls`` calls of ``fn``;
@@ -1751,9 +1815,7 @@ def profile_serving_ticks(eng, wl, t0, ticks):
             zs, ids, tw = bigmap.measurements(wl, t)
             eng.tick(tw, zs, ids=ids)
         torch.cuda.synchronize()
-    rows = [(ev.key, ev.count, getattr(ev, "device_time_total",
-                                       getattr(ev, "cuda_time_total", 0)))
-            for ev in prof.key_averages()]
+    rows = device_rows(prof)
     busy = sum(r[2] for r in rows) / 1e3 / ticks
     if not busy:
         return None
@@ -1777,9 +1839,7 @@ def profile_config3(dev, scn, ticks, ms_per_tick):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         driver.run_scenario_batch_lanes(scn, gen, B3, steps=ticks, device=dev)
         torch.cuda.synchronize()
-    rows = [(ev.key, ev.count, getattr(ev, "device_time_total",
-                                       getattr(ev, "cuda_time_total", 0)))
-            for ev in prof.key_averages()]
+    rows = device_rows(prof)
     busy_ms = sum(r[2] for r in rows) / 1e3 / ticks
     if not busy_ms:
         return None
@@ -1899,9 +1959,7 @@ def profile_perception(scan, lo, hi, calls=4):
         for _ in range(calls):
             detect_landmarks(scan, lo, hi, max_clusters=C3, max_points=P3)
         torch.cuda.synchronize()
-    rows = [(ev.count, getattr(ev, "device_time_total",
-                               getattr(ev, "cuda_time_total", 0)))
-            for ev in prof.key_averages()]
+    rows = [r[1:] for r in device_rows(prof)]
     busy = sum(r[1] for r in rows) / 1e3 / calls
     return {"calls": calls, "device_kernels_per_call":
             sum(r[0] for r in rows) / calls,
@@ -2588,9 +2646,7 @@ def profile_ticks(run, scn, dev, B, ticks=PROFILE_TICKS):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(scn, gen, B, steps=ticks, device=dev)
         torch.cuda.synchronize()
-    rows = [(ev.count, getattr(ev, "device_time_total",
-                               getattr(ev, "cuda_time_total", 0)))
-            for ev in prof.key_averages()]
+    rows = [r[1:] for r in device_rows(prof)]
     busy = sum(r[1] for r in rows) / 1e3 / ticks
     return {"scenario": scn.name, "engine": run.__name__, "B": B,
             "ms_per_tick": ms,
@@ -2908,9 +2964,7 @@ def profile_config4_ticks(run_ticks, ticks, ms_per_tick):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_ticks(ticks)
         torch.cuda.synchronize()
-    rows = [(ev.key, ev.count, getattr(ev, "device_time_total",
-                                       getattr(ev, "cuda_time_total", 0)))
-            for ev in prof.key_averages()]
+    rows = device_rows(prof)
     busy = sum(r[2] for r in rows) / 1e3 / ticks
     if not busy:
         return None
@@ -3057,6 +3111,194 @@ def phase_config4_batch(dev):
     return launches, errs, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: config 5 (pose-graph loop closure + map-sharded Schur refinement)
+# ---------------------------------------------------------------------------
+
+def megamap_fixture():
+    """The JAX fixture's arrays by dtype name, f64 numpy."""
+    gold = json.loads(GOLDEN_MEGAMAP.read_text())
+    T = gold["config"]["T"]
+    out = {}
+    for name, dt in (("f32", "<f4"), ("f64", "<f8")):
+        e = gold[name]
+        arr = {k[:-4]: np.frombuffer(base64.b64decode(e[k]), dt)
+               for k in e if k.endswith("_b64")}
+        out[name] = dict(
+            stage1=arr["stage1_poses"].reshape(T, 3),
+            poses=arr["poses"].reshape(T, 3).astype(np.float64),
+            landmarks=arr["landmarks_strided"].reshape(-1, 2)
+            .astype(np.float64),
+            ate=e["ate_m"], lm=e["landmark_rmse_m"])
+    return gold, out
+
+
+def config5_step(prob, stage1, n_shards, dev, gn_iters=None,
+                 cg_iters=None):
+    """Stage 2 from the stage-1 poses: (partitioned problem, step), at
+    CONFIG5's budget unless given."""
+    gn_iters = gn_iters or CONFIG5["gn_iters"]
+    cg_iters = cg_iters or CONFIG5["cg_iters"]
+    part = schur_dist.partition_problem(prob.bundle._replace(poses=stage1),
+                                        n_shards)
+    step = schur_dist.make_sharded_gn(
+        n_shards, T=CONFIG5["T"], N=CONFIG5["N"], M=part.obs_t.shape[0],
+        cg_iters=cg_iters, gn_steps=gn_iters, device=dev)
+    return part, step
+
+
+def max_diff(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def bench_megamap_row() -> dict:
+    """``python -m shermbot_navigation_tpu_torch.bench_megamap`` at its
+    defaults (config 5, f32, one shard) in a process of its own: its JSON
+    row. A process of its own: the time a user's call takes, without what
+    the earlier phases leave in this one (profiler sessions, allocator
+    state), which ``profile_gn_step``'s host clock shows beside it."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.bench_megamap"], cwd=ROOT,
+        capture_output=True, text=True, check=True, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def profile_gn_step(prob, stage1, dev, gn_step_ms):
+    """One GN step of stage 2 (f32, one shard), its problem already on the
+    card, by ``torch.profiler``: device kernels, the runtime's kernel
+    launches, busy ms, at 64 and at 32 CG iterations (their difference
+    gives a CG iteration's share); the idle share against ``gn_step_ms``,
+    the bench entry's GN step in a fresh process. Also each step's host
+    clock in this process (best of 3)."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = {}
+    for cg in (CONFIG5["cg_iters"], CONFIG5["cg_iters"] // 2):
+        part, step = config5_step(prob, stage1, 1, dev, gn_iters=1,
+                                  cg_iters=cg)
+        part = part._replace(**{k: v.to(dev)
+                                for k, v in part._asdict().items()})
+        step(part)
+        steps[cg] = (part, step)
+    rows = {cg: {"cg_iters": cg, "ms_in_this_process": min(
+        timed_run(step, part)[1] for _ in range(3)) * 1e3}
+        for cg, (part, step) in steps.items()}
+    for cg, (part, step) in steps.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(part)
+            torch.cuda.synchronize()
+        evs = device_rows(prof)
+        top = sorted(evs, key=lambda e: -e[1])[:6]
+        rows[cg].update(device_kernels=sum(e[1] for e in evs),
+                        host_launches=host_launches(prof),
+                        device_busy_ms=sum(e[2] for e in evs) / 1e3,
+                        most_launched=[(k[:70], n) for k, n, _ in top])
+    full, half = rows[CONFIG5["cg_iters"]], rows[CONFIG5["cg_iters"] // 2]
+    d_cg = CONFIG5["cg_iters"] - CONFIG5["cg_iters"] // 2
+    return {"gn_step": full, "gn_step_half_cg": half,
+            "device_kernels_per_cg_iter":
+                (full["device_kernels"] - half["device_kernels"]) / d_cg,
+            "bench_gn_step_ms": gn_step_ms,
+            "device_idle_share": 1.0 - full["device_busy_ms"] / gn_step_ms}
+
+
+def phase_config5(dev):
+    """Phase 19: config 5 at full size through ``run_megamap`` (f32, one
+    shard; every kernel counter set to 0 just before and read just after:
+    none may move), held to the JAX fixture; stage 1 bit for bit in f32
+    and f64; f64 stage 2 on one and on four map shards against the f64
+    fixture; a second f32 stage 2 against the first (the scatter-adds'
+    atomics); the bench entry's row (its own process) and one profiled GN
+    step."""
+    gold, fx = megamap_fixture()
+    c = CONFIG5
+    reset_counters()
+    (prob, out), seconds = timed_run(megamap.run_megamap, device=dev, **c)
+    launches = kernel_launches()
+    if any(launches.values()):
+        fail(f"config 5 launched a kernel: {launches}")
+    if out.poses.shape != (c["T"], 3) or out.landmarks.shape != (c["N"], 2) \
+            or not all_finite((out.poses, out.landmarks)):
+        fail("config 5: refined poses or landmarks not finite or misshapen")
+    ate, lm = bench_megamap.rms_errors(prob, out)
+    stride = gold["landmark_stride"]
+    res = {"observations": int(out.obs_t.shape[0]),
+           "run_megamap_seconds": seconds, "launches": launches,
+           "f32": {"ate_m": ate, "landmark_rmse_m": lm,
+                   "jax_ate_m": fx["f32"]["ate"],
+                   "jax_landmark_rmse_m": fx["f32"]["lm"],
+                   "ate_diff_m": abs(ate - fx["f32"]["ate"]),
+                   "pose_max_diff_m": max_diff(out.poses[:, 1:].cpu(),
+                                               fx["f32"]["poses"][:, 1:]),
+                   "landmark_max_diff_m": max_diff(
+                       out.landmarks[::stride].cpu(), fx["f32"]["landmarks"])}}
+    if not (ate < CONFIG5_ATE and lm < CONFIG5_LM_RMSE):
+        fail(f"config 5 f32: ATE {ate} / landmark RMSE {lm} over the pins")
+    if res["f32"]["ate_diff_m"] > CONFIG5_GOLD_ATE_TOL:
+        fail(f"config 5 f32: ATE {ate} off the JAX fixture's "
+             f"{fx['f32']['ate']}")
+
+    # stage 1 (host numpy) bit for bit; a second f32 stage 2
+    s1 = pose_graph.optimize_host(prob.graph, iters=c["pg_iters"]).poses
+    if not np.array_equal(s1, fx["f32"]["stage1"]):
+        fail("config 5: f32 stage-1 poses differ from the JAX fixture's")
+    part, step = config5_step(prob, s1, 1, dev)
+    again = step(part)
+    res["f32"]["run_to_run_pose_max_diff_m"] = max_diff(
+        again.poses.cpu(), out.poses.cpu())
+    res["f32"]["run_to_run_landmark_max_diff_m"] = max_diff(
+        again.landmarks.cpu(), out.landmarks.cpu())
+    del again, part, step
+
+    # f64 on the card, one and four map shards
+    prob64 = megamap.synthesize(c["N"], c["T"], c["obs_per_pose"],
+                                dtype=torch.float64)
+    s1_64 = pose_graph.optimize_host(prob64.graph, iters=c["pg_iters"]).poses
+    if not np.array_equal(s1_64, fx["f64"]["stage1"]):
+        fail("config 5: f64 stage-1 poses differ from the JAX fixture's")
+    outs64 = {}
+    for n in (1, CONFIG5_SHARDS):
+        part, step = config5_step(prob64, s1_64, n, dev)
+        outs64[n], secs = timed_run(step, part)
+        o = outs64[n]
+        res[f"f64_shards{n}"] = {
+            "stage2_seconds": secs,
+            "pose_max_diff_m": max_diff(o.poses.cpu(), fx["f64"]["poses"]),
+            "landmark_max_diff_m": max_diff(o.landmarks[::stride].cpu(),
+                                            fx["f64"]["landmarks"]),
+            "ate_m": bench_megamap.rms_errors(prob64, o)[0]}
+        if max(res[f"f64_shards{n}"]["pose_max_diff_m"],
+               res[f"f64_shards{n}"]["landmark_max_diff_m"]) \
+                > CONFIG5_F64_TOL:
+            fail(f"config 5 f64, {n} shards: off the JAX fixture "
+                 f"({res[f'f64_shards{n}']})")
+    one, four = outs64[1], outs64[CONFIG5_SHARDS]
+    res["shards_pose_max_diff_m"] = max_diff(four.poses.cpu(),
+                                             one.poses.cpu())
+    res["shards_landmark_max_diff_m"] = max_diff(four.landmarks.cpu(),
+                                                 one.landmarks.cpu())
+    if max(res["shards_pose_max_diff_m"],
+           res["shards_landmark_max_diff_m"]) > CONFIG5_F64_TOL:
+        fail(f"config 5 f64: {CONFIG5_SHARDS} shards off 1 shard")
+    del outs64, one, four, prob64
+
+    res["bench"] = row = bench_megamap_row()
+    if (row["N_landmarks"], row["keyframes"], row["observations"],
+            row["gn_steps"], row["cg_iters"]) != (
+            c["N"], c["T"], res["observations"], c["gn_iters"],
+            c["cg_iters"]) or not row["refined_pose_ate_m"] < CONFIG5_ATE:
+        fail(f"config 5: the bench entry's row is off: {row}")
+    res["profile"] = profile_gn_step(prob, s1, dev,
+                                     row["schur_gn_step_s"] * 1e3)
+    emit(phase="config5", **c, **res,
+         nvidia_smi=nvidia_smi(),
+         bounds={"ate_m": CONFIG5_ATE, "landmark_rmse_m": CONFIG5_LM_RMSE,
+                 "gold_ate_m": CONFIG5_GOLD_ATE_TOL,
+                 "f64_m": CONFIG5_F64_TOL},
+         note="no kernel on this path: every counter read, all 0")
+    return res
+
+
 def ptxas_resources(text: str):
     """Registers, shared memory and spill bytes of every kernel, from
     ``nvcc -Xptxas -v``'s output."""
@@ -3146,6 +3388,8 @@ def main() -> int:
     phase_configs12(dev)
     torch.cuda.empty_cache()
     b_launches, b_errs, b_rows = phase_config4_batch(dev)
+    torch.cuda.empty_cache()
+    phase_config5(dev)
 
     launches = dict(launches, seq_scan_unknown=unk_launches["seq_scan"],
                     cov_update=dense_launches, circle_moments=cm_launches,

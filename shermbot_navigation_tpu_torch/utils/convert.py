@@ -6,7 +6,9 @@ the JAX layouts (for a JAX ``NamedTuple`` state ``s``:
 kept: float32 / float64 fields, int32 counters, bool masks. A nested state
 (``WorldState.drive``) crosses as a nested dict. A vmapped JAX state has
 its batch leading, which is the port's batch-first layout; the
-batch-trailing ``BatchState`` has the same layout on both sides.
+batch-trailing ``BatchState`` has the same layout on both sides. Config
+5's inputs cross the same way: a ``PoseGraph`` and a ``BundleProblem``,
+whose round trip is exact.
 
 ``device=None`` is the card, as everywhere in the package.
 """
@@ -19,6 +21,8 @@ import torch
 from ..device import resolve
 from ..models.ekf_batch import BatchState
 from ..models.ekf_slam import EKFState
+from ..models.pose_graph import PoseGraph
+from ..models.schur import BundleProblem
 from ..ops.clustering import Clusters
 from ..ops.diff_drive import DiffDriveState
 from ..parallel.blocked_ekf import BlockedState
@@ -74,3 +78,19 @@ def world_state_to_numpy(state: WorldState) -> dict:
 
 def clusters_from_numpy(arrays: dict, device=None) -> Clusters:
     return _from_numpy(Clusters, arrays, device)
+
+
+def pose_graph_from_numpy(arrays: dict, device=None) -> PoseGraph:
+    return _from_numpy(PoseGraph, arrays, device)
+
+
+def pose_graph_to_numpy(g: PoseGraph) -> dict:
+    return _to_numpy(g)
+
+
+def bundle_from_numpy(arrays: dict, device=None) -> BundleProblem:
+    return _from_numpy(BundleProblem, arrays, device)
+
+
+def bundle_to_numpy(prob: BundleProblem) -> dict:
+    return _to_numpy(prob)

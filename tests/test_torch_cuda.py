@@ -27,6 +27,9 @@ same noise and part by summation order only (poses within 1e-4 over 12
 f32 ticks of config 2). A launch for B worlds gives each world the bits of
 its own one-world launch (no world reads another's operands), and config
 4's sequential tick makes the deferred tick's decisions at B worlds.
+Config 5's refinement (no kernel) runs on the card by default, equals the
+CPU run in f64 within 1e-9, its GN step never waits for the device, and a
+checkpoint of it loads back onto the card bit for bit.
 """
 
 import json
@@ -37,6 +40,7 @@ import torch
 
 from _torch_parity import grid_operands, scan_inputs, unknown_scan_inputs
 from shermbot_navigation_tpu_torch.models import ekf_slam
+from shermbot_navigation_tpu_torch.models import pose_graph, schur
 from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
 from shermbot_navigation_tpu_torch.ops import circle_fit, landmark_detection
 from shermbot_navigation_tpu_torch.ops.clustering import Clusters
@@ -46,6 +50,7 @@ from shermbot_navigation_tpu_torch.ops.kernels import cov_update as tcu
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as tgu
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as tsq
 from shermbot_navigation_tpu_torch.parallel import bigmap, blocked_ekf
+from shermbot_navigation_tpu_torch.parallel import megamap, schur_dist
 from shermbot_navigation_tpu_torch.pipeline import driver, serving
 from shermbot_navigation_tpu_torch.pipeline.config import get_scenario
 
@@ -796,3 +801,64 @@ def test_seq_scan_occupancy_query(dev):
     fits = [tsq.max_active_clusters(tsq.launch_plan(2048, 8, cluster=c), 8)
             for c in (8, 4, 2, 1)]
     assert min(fits) >= 1 and fits[-1] > fits[0], fits
+
+
+def _megamap_stage2(N, T, obs, n_shards, dev, **kw):
+    """(partitioned problem on ``dev``, sharded step) of config 5 after the
+    host loop closure."""
+    prob = megamap.synthesize(N, T, obs)
+    g = pose_graph.optimize_host(prob.graph, iters=3)
+    part = schur_dist.partition_problem(prob.bundle._replace(poses=g.poses),
+                                        n_shards)
+    step = schur_dist.make_sharded_gn(n_shards, T=T, N=N,
+                                      M=part.obs_t.shape[0], device=dev,
+                                      **kw)
+    return schur.BundleProblem(*(x.to(dev) for x in part)), step
+
+
+def test_schur_gn_step_never_waits_for_the_device(dev):
+    """Config 5's stage 2: one GN step, its 16 CG iterations and the
+    gauge projection, under PyTorch's sync debug mode: no value goes back
+    to the host inside the step."""
+    part, step = _megamap_stage2(256, 48, 6, 2, dev, cg_iters=16)
+    warm = step(part)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(part)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out.poses.is_cuda and bool(torch.isfinite(out.landmarks).all())
+    torch.testing.assert_close(out.poses, warm.poses, rtol=0, atol=1e-4)
+    assert torch.equal(out.poses[0], part.poses[0])
+
+
+def test_run_megamap_defaults_to_the_card(dev):
+    """``run_megamap()`` with no device runs stage 2 on ``cuda:<current>``;
+    in f64 it equals the CPU run within 1e-9 (the scatter-adds' atomics
+    change only the summation order)."""
+    here = torch.device("cuda", torch.cuda.current_device())
+    kw = dict(N=64, T=24, obs_per_pose=4, n_shards=4, dtype=torch.float64)
+    _, out = megamap.run_megamap(**kw)
+    assert out.poses.device == here and out.landmarks.device == here
+    _, cpu = megamap.run_megamap(device="cpu", **kw)
+    for k in ("poses", "landmarks"):
+        torch.testing.assert_close(getattr(out, k).cpu(), getattr(cpu, k),
+                                   rtol=0, atol=1e-9, msg=k)
+
+
+def test_refinement_checkpoint_loads_onto_the_card(dev, tmp_path):
+    """``checkpoint.load`` puts every leaf on its template leaf's device:
+    a refined bundle saved from the card comes back there with its bits,
+    and the step goes on from it."""
+    from shermbot_navigation_tpu_torch.pipeline import checkpoint
+    part, step = _megamap_stage2(256, 48, 6, 2, dev, cg_iters=16)
+    half = step(part)
+    path = str(tmp_path / "bundle.npz")
+    checkpoint.save(path, half, step=1)
+    restored, saved = checkpoint.load(path, half)
+    assert saved == 1
+    for a, b in zip(restored, half):
+        assert a.device == b.device and torch.equal(a, b)
+    assert bool(torch.isfinite(step(restored).poses).all())
