@@ -84,8 +84,9 @@ It imports nothing of JAX. Phases, one JSON line each:
    kernel's counter equals the ticks run (path A's fit);
 14. perception_buffered -- on every tick's (1024, 360) scans of phase 13,
    ``detect_landmarks(segmented=False)`` through the whole-fit kernel:
-   ``valid`` equal to phase 13's segmented detections and to the
-   plain-version route on the card, positions within stated bounds; the
+   ``valid`` equal to phase 13's segmented detections (every tick) and
+   to the plain-version route on the card (every 4th tick's scans),
+   positions within stated bounds; the
    circle_fit counter equals the ticks run. On every 50th tick's clusters
    also the tensor-form fit (``fit_circles(componentized=False)``, behind
    the moment kernel): its counter equals those ticks, its fits held to
@@ -124,7 +125,7 @@ It imports nothing of JAX. Phases, one JSON line each:
    at every tick, poses within ``CONFIGS12_POSE_TOL``, the ATE spread
    printed; (b) the same at B=1024 through ``run_scenario_batch`` (the
    dense engine under ``torch.func.vmap``) against the lanes engine on the
-   same noise; (c) config 2 at B=2048 on the lanes engine, the first 8
+   same noise; (c) config 2 at B=1024 on the lanes engine, the first 8
    worlds on ``tests/fixtures/course12_golden.json``'s draws (7 noisy, 1
    deterministic): ``n_seen`` equal to the fixture at every tick, each
    fixture world's parting tick (the first tick a pose is off by more than
@@ -133,8 +134,8 @@ It imports nothing of JAX. Phases, one JSON line each:
    m; median-world ATE, diverged fraction and median NEES over all worlds
    (never a pooled RMSE); then ``run_scenario_batch`` on the first 100
    ticks of the first 256 worlds against the lanes run; (d)
-   ``course12_tuned`` at B=2048: no world may diverge; (e) config 1's
-   batch sweep on the lanes engine from B=4096 by 4x past 262144 while
+   ``course12_tuned`` at B=1024: no world may diverge; (e) config 1's
+   batch sweep on the lanes engine from B=16384 by 4x past 262144 while
    world x ticks / s grows by more than 10% and a full run's outputs fit,
    the saturation point, and ``torch.profiler`` over 4 ticks of each
    config on each engine: device kernels a tick, busy ms, idle share.
@@ -178,6 +179,31 @@ It imports nothing of JAX. Phases, one JSON line each:
    ``torch.profiler`` at 64 and 32 CG iterations: device kernels (a CG
    iteration's from the difference), the runtime's kernel launches, busy
    ms, and the idle share against the bench entry's GN step.
+20. config4_sharded -- config 4 over map shards (``parallel/mesh.py``):
+   (a) ``config4_sharded_kernel``: phase 18's B4 filled worlds split into
+   S20=8 shards in one process, the next tick's plain sharded scan, and
+   kernel 1 on the (8 x 8) shard plane sets (2, 2, 256, 2048) in one
+   launch (rowT over each shard's local rows, colT over the global
+   columns) against its plain version at GRID_ATOL; (b)
+   ``config4_sharded_one_process``: the main path of this slice, T=320
+   known and unknown ticks over 8 shards in one process, every counter
+   set to 0 just before and read after (kernel 1 once a tick, kernel 2
+   never: at S > 1 the scan is the plain one with collectives), each
+   tick's decisions, n_seen and seen equal to the one-shard run's on the
+   card (kernels 1 and 2), the final state against the two serving
+   goldens at GOLD_TOL / GOLD_UNKNOWN_TOL; S = 2 and 4, and
+   ``bigmap.make_runner(batch=8, mesh=...)``, for 32 ticks within
+   PROC_TOL; (c)
+   ``config4_sharded_two_processes``: two processes on ``cuda:0`` (gloo,
+   the collectives staged through the host), 4 shards each: 64 known and
+   64 unknown deferred ticks and 8 sequential ones, decisions equal to
+   (b)'s every tick and the state within PROC_TOL of the one-process run,
+   and config 5's f64 stage 2 over 2 x 2 shards within CONFIG5_F64_TOL of
+   phase 19's 4-shard run; (d) ``config4_sharded_times``: ms a tick at
+   S = 1, 2, 8 and B = 1, 8 in one process (device kernels a tick, busy
+   ms, idle share) and on the two processes (collectives, host copies
+   and their share of a tick), kernel 1 on the shard fold beside its
+   bound and ``torch.baddbmm``.
 
 Then the card line as nvidia-smi prints it, the kernels line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -194,6 +220,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -217,6 +244,7 @@ from shermbot_navigation_tpu_torch.ops.landmark_detection import (
     detect_landmarks)
 from shermbot_navigation_tpu_torch.parallel import bigmap, blocked_ekf
 from shermbot_navigation_tpu_torch.parallel import megamap, schur_dist
+from shermbot_navigation_tpu_torch.parallel import mesh as mesh_lib
 from shermbot_navigation_tpu_torch.pipeline import driver, serving
 from shermbot_navigation_tpu_torch.pipeline.config import get_scenario
 from shermbot_navigation_tpu_torch.sim import tube_world
@@ -399,13 +427,17 @@ CONFIG3_TOL = {"sim_early": 2e-5, "true_pose": 4e-2, "odom_pose": 5e-3,
                "n_detections_share": 0.95, "n_detections_diff": 3,
                "n_seen_final": 3, "deterministic_ate": 1e-3, "ate": 1e-2}
 PERCEPTION_POS_TOL = 1e-3
+# the buffered path's plain version (~100 ms a tick at B3) runs on every
+# 4th tick's scans, to keep the whole run near 600 s
+PLAIN_EVERY = 4
 
 # Phase 17, configs 1 and 2. Worlds: config 1 at bench.py's batch, its
-# dense engine at B=1024; config 2 and course12_tuned at the batch the
-# JAX package reports them at (BENCH_NOTES.md); the dense engine of
-# config 2 on its first 100 ticks.
+# dense engine at B=1024; config 2 and course12_tuned at half the batch
+# the JAX package reports them at (BENCH_NOTES.md: 2048), to keep the
+# whole run near 600 s with phase 20; the dense engine of config 2 on its
+# first 100 ticks.
 B1, B1_VMAPPED = 16384, 1024
-B2, B2_VMAPPED, T2_VMAPPED = 2048, 256, 100
+B2, B2_VMAPPED, T2_VMAPPED = 1024, 256, 100
 # Poses against the JAX f32 run (and the two engines against each other):
 # two f32 implementations part by the rounding of the wheel-angle sums,
 # which XLA fuses (cmd_wheels + u * eta in one rounding) and the port
@@ -419,9 +451,9 @@ CONFIG1_ATE_TOL = 1e-4         # against the JAX f32 and C++ ATE, every world
 CONFIG2_DET_ATE_TOL = 1e-3     # config 2's deterministic world against JAX
 CONFIG2_EARLY = 300    # no fixture world of config 2 parts before this tick
 PARTING_WINDOW = 10    # ticks before a parting searched for its gate margin
-# from 4096: B=256 and 1024 (30-40 ms a tick, host-bound like 4096 to
+# from 16384: B=256 to 4096 (30-40 ms a tick, host-bound like 16384 and
 # 65536) are left out to keep the whole run near 600 s
-SWEEP_BATCHES = (4096, 16384, 65536, 262144)
+SWEEP_BATCHES = (16384, 65536, 262144)
 SWEEP_TICKS = 20       # timed ticks a sweep point, after 2 warm ticks
 SWEEP_GROWTH = 1.10    # a 4x larger batch must gain this much to go on
 PROFILE_TICKS = 4
@@ -471,6 +503,26 @@ CONFIG5_GOLD_ATE_TOL = 1e-3
 CONFIG5_F64_TOL = 1e-8
 CONFIG5_SHARDS = 4
 
+# Phase 20, config 4 over map shards: BASELINE config 4's "8 chips" as
+# S20 map shards of one card (N/S20 = 256 landmark rows a shard), T ticks
+# in one process; S = 2 and 4, and B4 worlds, for T20_SHORT; two
+# processes sharing the card (gloo), S20 / PROCS20 shards each, for
+# T20_PROC deferred and T20_PROC_SEQ sequential ticks, and config 5's f64
+# stage 2 over PROCS20 x CONFIG5_PROC_SHARDS shards.
+S20 = 8
+S20_SHORT = (2, 4)
+T20_SHORT = 32
+T20_PROC, T20_PROC_SEQ = 64, 8
+PROCS20 = 2
+CONFIG5_PROC_SHARDS = 2
+PROC20_TIMEOUT = 400
+# Against the one-process run at the same S (two processes), or S20 (fewer
+# shards, more worlds): the owner broadcasts add zeros and the gathers
+# concatenate, so only the batched products' summation order may differ
+# (a world's planes are one of more in a batched call). Each float field
+# within PROC_TOL of its scale; n_seen, seen and the decisions exactly.
+PROC_TOL = 1e-6
+
 KERNELS = {
     "grid_update": {
         "source": f"{PKG}/csrc/grid_update.cu",
@@ -505,6 +557,10 @@ KERNELS = {
     "seq_scan_batched": {
         "source": f"{PKG}/csrc/seq_scan.cu",
         "replaces": "shermbot_navigation_tpu/ops/pallas/seq_scan.py:455"},
+    # kernel 1 on map shards' rectangular planes (phase 20)
+    "grid_update_shards": {
+        "source": f"{PKG}/csrc/grid_update.cu",
+        "replaces": "shermbot_navigation_tpu/ops/pallas/grid_update.py:87"},
 }
 # f32 operations of one cluster's fit tail, counted from csrc/circle_fit.cu:
 # a Jacobi rotation is 75 multiplies, adds and subtracts and three calls
@@ -1666,7 +1722,8 @@ def phase_config3(dev, scn):
 
 def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
     """Path B: the buffered perception entry, through kernel 4, on every
-    tick's scans of path A."""
+    tick's scans of path A; held to path A on every tick and to its plain
+    version on every PLAIN_EVERY-th."""
     params = scn.world_params(device=dev)
     T = scans.shape[0]
     kw = dict(max_clusters=C3, max_points=P3)
@@ -1677,7 +1734,7 @@ def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
     # detections off by more than 1e-4, PERCEPTION_POS_TOL and 1e-2
     steps = torch.tensor([1e-4, PERCEPTION_POS_TOL, 1e-2], device=dev)
     over = {k: count(3) for k in worst}
-    n_det = count()
+    n_det = {k: count() for k in worst}
     mismatch = {"vs_path_a_valid": count(), "vs_plain_valid": count()}
 
     reset_counters()
@@ -1715,31 +1772,34 @@ def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
     del clusters, tensor_form
 
     for t in range(T):
-        plain = detect_landmarks(scans[t], lo, hi, segmented=False,
-                                 use_kernel=False, **kw)
         b = buf[t]
         # path A kept its detections in polar form: back to positions
         r, th = zs_all[t][..., 0], zs_all[t][..., 1]
         seg_pos = torch.stack([r * torch.cos(th), r * torch.sin(th)], -1)
         mismatch["vs_path_a_valid"] += (b.valid != valid_all[t]).sum()
-        mismatch["vs_plain_valid"] += (b.valid != plain.valid).sum()
-        n_det += b.valid.sum()
-        for name, pos in (("vs_path_a", seg_pos),
-                          ("vs_plain", plain.positions)):
+        against = [("vs_path_a", seg_pos)]
+        if t % PLAIN_EVERY == 0:
+            plain = detect_landmarks(scans[t], lo, hi, segmented=False,
+                                     use_kernel=False, **kw)
+            mismatch["vs_plain_valid"] += (b.valid != plain.valid).sum()
+            against.append(("vs_plain", plain.positions))
+        for name, pos in against:
+            n_det[name] += b.valid.sum()
             d = torch.where(b.valid, (b.positions - pos).abs().amax(-1),
                             torch.zeros_like(r))
             worst[name] = torch.maximum(worst[name], d.max())
             over[name] += (d[..., None] > steps).sum((0, 1))
     torch.cuda.synchronize()
     bad = {k: int(v) for k, v in mismatch.items()}
-    n = int(n_det)
-    pos = {k: {"max_abs_err": float(worst[k]),
+    n = {k: int(v) for k, v in n_det.items()}
+    pos = {k: {"max_abs_err": float(worst[k]), "detections": n[k],
                "n_over_1e-4_tol_1e-2": over[k].tolist()} for k in worst}
     emit(phase="perception_buffered", B=B3, T=T, C=B3 * C3, P=P3,
          seconds=seconds, ms_per_tick=seconds * 1e3 / T,
-         launches=launches, detections=n,
+         launches=launches, detections=n["vs_path_a"],
+         plain_ticks=len(range(0, T, PLAIN_EVERY)),
          mismatches=bad, positions=pos, pos_tol=PERCEPTION_POS_TOL,
-         share_over_pos_tol={k: v["n_over_1e-4_tol_1e-2"][1] / max(n, 1)
+         share_over_pos_tol={k: v["n_over_1e-4_tol_1e-2"][1] / max(n[k], 1)
                              for k, v in pos.items()},
          switch_share=FIT_SWITCH_SHARE, tensor_form_fit=dict(
              tf, launches=launches_tf, fit_atol=FIT_ATOL))
@@ -1749,8 +1809,8 @@ def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
     if any(bad.values()):
         fail(f"path B's detections differ: {bad}")
     for k, v in pos.items():
-        if v["n_over_1e-4_tol_1e-2"][1] > FIT_SWITCH_SHARE * n:
-            fail(f"path B positions {k}: {v} of {n} detections")
+        if v["n_over_1e-4_tol_1e-2"][1] > FIT_SWITCH_SHARE * n[k]:
+            fail(f"path B positions {k}: {v} of {n[k]} detections")
     if launches_tf["circle_moments"] != tf["ticks"]:
         fail(f"the tensor-form fit launched {launches_tf}, want "
              f"circle_moments {tf['ticks']}")
@@ -3108,7 +3168,7 @@ def phase_config4_batch(dev):
     errs = {"grid_update": kernels["grid_update"]["max_abs_err"],
             "seq_scan": max(kernels["seq_scan"][
                 "max_abs_err_transposed_planes"].values())}
-    return launches, errs, rows
+    return launches, errs, rows, st, wl
 
 
 # ---------------------------------------------------------------------------
@@ -3133,16 +3193,17 @@ def megamap_fixture():
     return gold, out
 
 
-def config5_step(prob, stage1, n_shards, dev, gn_iters=None,
-                 cg_iters=None):
-    """Stage 2 from the stage-1 poses: (partitioned problem, step), at
+def config5_step(prob, stage1, mesh, dev, gn_iters=None, cg_iters=None):
+    """Stage 2 from the stage-1 poses over ``mesh`` (a shard count in
+    this process, or a ``MapMesh``): (partitioned problem, step), at
     CONFIG5's budget unless given."""
     gn_iters = gn_iters or CONFIG5["gn_iters"]
     cg_iters = cg_iters or CONFIG5["cg_iters"]
-    part = schur_dist.partition_problem(prob.bundle._replace(poses=stage1),
-                                        n_shards)
+    part = schur_dist.partition_problem(
+        prob.bundle._replace(poses=stage1),
+        mesh if isinstance(mesh, int) else mesh.shards)
     step = schur_dist.make_sharded_gn(
-        n_shards, T=CONFIG5["T"], N=CONFIG5["N"], M=part.obs_t.shape[0],
+        mesh, T=CONFIG5["T"], N=CONFIG5["N"], M=part.obs_t.shape[0],
         cg_iters=cg_iters, gn_steps=gn_iters, device=dev)
     return part, step
 
@@ -3273,6 +3334,7 @@ def phase_config5(dev):
             fail(f"config 5 f64, {n} shards: off the JAX fixture "
                  f"({res[f'f64_shards{n}']})")
     one, four = outs64[1], outs64[CONFIG5_SHARDS]
+    four_cpu = (four.poses.cpu(), four.landmarks.cpu())
     res["shards_pose_max_diff_m"] = max_diff(four.poses.cpu(),
                                              one.poses.cpu())
     res["shards_landmark_max_diff_m"] = max_diff(four.landmarks.cpu(),
@@ -3296,7 +3358,407 @@ def phase_config5(dev):
                  "gold_ate_m": CONFIG5_GOLD_ATE_TOL,
                  "f64_m": CONFIG5_F64_TOL},
          note="no kernel on this path: every counter read, all 0")
-    return res
+    return res, four_cpu
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: config 4 over map shards, in one process and in two
+# ---------------------------------------------------------------------------
+
+def grid_work(nl, n, m, sets):
+    """(bytes, f32 operations) of kernel 1 on ``sets`` plane sets of
+    (2, 2, nl, n): the grid in and out, A, B, crow, ccol and the two
+    tables read once (a replicated operand once a set, as the kernel takes
+    it)."""
+    per_set = 4 * (2 * 4 * nl * n + 2 * nl * 2 * m + 2 * 2 * m * n
+                   + 4 * m * n + 4 * nl * m + nl + n)
+    return sets * per_set, sets * 4 * nl * n * 2 * 2 * m
+
+
+def one_process_mesh(S, dev):
+    return mesh_lib.make_mesh(map_=S, local_shards=S, device=dev)
+
+
+def shard_plane_kernel(cfg, st, wl, Q, R, dev):
+    """(a) Kernel 1 on the shard planes of a real sharded tick: phase 18's
+    B4 filled worlds split into S20 map shards in one process, the next
+    tick's plain sharded scan, its operands (rowT over each shard's local
+    rows, colT over the global columns), then the (S20 B4) plane sets of
+    (2, 2, N/S20, N) in one launch against the plain version."""
+    mesh = one_process_mesh(S20, dev)
+    tw, zs, valid, ids = config4_inputs(wl, FILL4, B4)
+    p = blocked_ekf._predict_shard(cfg, blocked_ekf._replicas_out(
+        blocked_ekf.shard_state(st, mesh), mesh), tw, Q)
+    L, B, Nl = p.seen.shape
+    outs = sq.reference_seq_scan(
+        p.mean_r, p.mean_m.transpose(-1, -2).contiguous(), p.cov_rr,
+        p.cov_rm.transpose(-1, -2).reshape(L, B, 6, Nl), p.diag4, p.seen,
+        p.n_seen, p.cov_mm.reshape(L, B, 4, Nl, N), zs, valid, ids, R,
+        mesh=mesh)
+    ops = blocked_ekf.grid_operands(*outs[7:], mesh=mesh)
+    grid_in = p.cov_mm.reshape(L * B, 2, 2, Nl, N)
+    cov = gu.fused_grid_update(grid_in.clone(), *ops, use_kernel=True)
+    err = float((cov - gu.reference_grid_update(grid_in, *ops)).abs().max())
+    kinds = outs[11]
+    res = {"plane_sets": L * B, "planes": list(grid_in.shape),
+           "plan": gu.launch_plan(Nl, N, M, batch=L * B),
+           "max_abs_err": err, "atol": GRID_ATOL,
+           "kinds": sorted(set(kinds.flatten().tolist())),
+           "local_rows_with_init": int((ops[4] >= 0).sum()),
+           "global_cols_with_init": int((ops[5][::L] >= 0).sum())}
+    if not err <= GRID_ATOL:
+        fail(f"grid_update on {L * B} shard plane sets: err {err}")
+    if not (kinds == 1).any():
+        fail(f"the shard-plane tick holds no update: {res}")
+    return res, (grid_in, ops)
+
+
+def shard_plane_times(grid_in, ops):
+    """(d) Kernel 1 on the shard fold: ms a call (CUDA events), device ms
+    (profiler), the plain version's ms, ``torch.baddbmm`` on the same
+    planes (used nowhere in the port) and the bound of this work."""
+    g = grid_in.clone()
+    LB, _, _, Nl, n = grid_in.shape
+    a, b = ops[0], ops[1]
+    g4 = grid_in.reshape(LB * 4, Nl, n)
+    a4 = a[:, :, None].expand(LB, 2, 2, Nl, 2 * M).reshape(LB * 4, Nl, 2 * M)
+    b4 = b[:, None].expand(LB, 2, 2, 2 * M, n).reshape(LB * 4, 2 * M, n)
+    row = {"ms": cuda_ms(lambda: gu.fused_grid_update(g, *ops), 20),
+           "device_ms": profiled_device_ms(
+               lambda: gu.fused_grid_update(g, *ops), "grid_update", 10),
+           "plain_ms": cuda_ms(lambda: gu.reference_grid_update(grid_in,
+                                                                *ops), 1, 3),
+           "library_ms": cuda_ms(
+               lambda: torch.baddbmm(g4, a4, b4, alpha=-1.0), 20)}
+    row.update(bound_of(*grid_work(Nl, n, M, LB)))
+    if row["device_ms"]:
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def shard_tick_run(dev, cfg, wl, mesh, known, ticks, batch=1,
+                   deferred=True, snap=()):
+    """``ticks`` ticks of the config-4 workload from empty maps through
+    the deferred (or sequential) tick over ``mesh``'s shards (None: the
+    global state, one shard), ``batch`` worlds on one measurement stream.
+    Returns (final state, this process's shards with a mesh; per tick
+    (kind, slot, n_seen, seen); per tick (grid_update, seq_scan)
+    launches; {tick: global state} at the ticks in ``snap``, one process
+    only)."""
+    Q, R = bigmap.noise(device=dev)
+    dec = []
+    make = (blocked_ekf.make_deferred_step if deferred
+            else blocked_ekf.make_sequential_step)
+    step = make(cfg, M, dev, known=known, decisions=dec, mesh=mesh)
+    st = blocked_ekf.init(cfg, batch, device=dev)
+    if mesh is not None:
+        st = blocked_ekf.shard_state(st, mesh)
+    valid = torch.ones((batch, M), dtype=torch.bool, device=dev)
+    hist, counts, snaps = [], [], {}
+    for t in range(ticks):
+        zs, ids, tw = bigmap.measurements(wl, t)
+        before = (gu.fused_grid_update.launches,
+                  sq.deferred_seq_scan.launches)
+        st = step(st, tw.expand(batch, 3), zs.expand(batch, M, 2), valid,
+                  *((ids.expand(batch, M),) if known else ()), Q, R)
+        counts.append((gu.fused_grid_update.launches - before[0],
+                       sq.deferred_seq_scan.launches - before[1]))
+        if mesh is None:
+            hist.append((*dec[-1], st.n_seen.clone(), st.seen.clone()))
+        else:
+            hist.append((*dec[-1], st.n_seen[0].clone(),
+                         mesh.all_gather(st.seen, -1)))
+        if t + 1 in snap:
+            snaps[t + 1] = clone_state(
+                st if mesh is None else blocked_ekf.unshard_state(st, mesh))
+    torch.cuda.synchronize()
+    return st, hist, counts, snaps
+
+
+def same_hist(a, b) -> bool:
+    return len(a) == len(b) and all(
+        all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(p, q))
+        for p, q in zip(a, b))
+
+
+def state_scale_err(got, want):
+    """Largest |got - want| of each float field over its scale, and whether
+    the discrete fields are equal."""
+    errs = {f: float((getattr(got, f).double() - getattr(want, f).double())
+                     .abs().max()) / max(1.0, float(getattr(want, f).abs()
+                                                    .max()))
+            for f in got._fields if getattr(got, f).is_floating_point()}
+    return errs, all(torch.equal(getattr(got, f), getattr(want, f))
+                     for f in ("n_seen", "seen"))
+
+
+def shard_tick_times(dev, cfg, wl, mesh, batch, warm=2, ticks=8):
+    """ms a tick of the known deferred tick over ``mesh`` (None: one
+    shard) at ``batch`` worlds from empty maps (host clock around
+    synchronized ticks), the mesh's collectives, host copies and host time
+    in them a tick, and (one process) device kernels, busy ms and the idle
+    share by ``torch.profiler``."""
+    Q, R = bigmap.noise(device=dev)
+    step = blocked_ekf.make_deferred_step(cfg, M, dev, mesh=mesh)
+    st = blocked_ekf.init(cfg, batch, device=dev)
+    if mesh is not None:
+        st = blocked_ekf.shard_state(st, mesh)
+    valid = torch.ones((batch, M), dtype=torch.bool, device=dev)
+    holder, clock = [st], [0]
+
+    def run(k):
+        for _ in range(k):
+            zs, ids, tw = bigmap.measurements(wl, clock[0])
+            holder[0] = step(holder[0], tw.expand(batch, 3),
+                             zs.expand(batch, M, 2), valid,
+                             ids.expand(batch, M), Q, R)
+            clock[0] += 1
+
+    run(warm)
+    torch.cuda.synchronize()
+    if mesh is not None:
+        mesh.reset_counts()
+    t0 = time.perf_counter()
+    run(ticks)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ticks * 1e3
+    row = {"ms_per_tick": ms, "world_ticks_per_s": batch / ms * 1e3}
+    if mesh is not None:
+        row.update(collectives_per_tick=mesh.collectives / ticks,
+                   host_copies_per_tick=mesh.host_copies / ticks,
+                   collective_share=mesh.collective_s / ticks * 1e3 / ms)
+    if mesh is None or mesh.procs == 1:
+        row["profile"] = profile_config4_ticks(run, 3, ms)
+    return row
+
+
+def phase_config4_sharded_one(dev, cfg):
+    """(b) Config 4 over S20 map shards in one process, T ticks, known and
+    unknown, the counters read every tick; against the one-shard run on
+    the card (kernels 1 and 2) tick by tick and the JAX goldens; S = 2, 4
+    and B4 worlds for T20_SHORT ticks. Returns the numbers, the
+    one-process snapshots and first T20_PROC ticks' decisions, and the
+    main path's launches (the known run's)."""
+    gold = {True: json.loads(GOLDEN.read_text()),
+            False: json.loads(GOLDEN_UNKNOWN.read_text())}
+    wl = bigmap.make_workload(N, T, M, device=dev)
+    mesh = one_process_mesh(S20, dev)
+    out, snaps, refs, hists, main_launches = {}, {}, {}, {}, None
+    for known in (True, False):
+        name = "known" if known else "unknown"
+        _, refs[known], _, _ = shard_tick_run(dev, cfg, wl, None, known, T)
+        reset_counters()
+        t0 = time.perf_counter()
+        st, hist, counts, snaps[known] = shard_tick_run(
+            dev, cfg, wl, mesh, known, T, snap={T20_SHORT, T20_PROC_SEQ,
+                                                T20_PROC})
+        seconds = time.perf_counter() - t0
+        launches = kernel_launches()
+        if known:
+            main_launches = launches
+        glob = blocked_ekf.unshard_state(st, mesh)
+        if known:
+            errs, pose_err = golden_errors(glob, gold[True])
+            tol = GOLD_TOL
+        else:
+            errs, tol = unknown_golden_errors(glob, gold[False]), \
+                GOLD_UNKNOWN_TOL
+        n_seen_ticks = [int(h[2][0]) for h in hist]
+        hists[known] = [[x.cpu() for x in h] for h in hist[:T20_PROC]]
+        row = {"S": S20, "T": T, "seconds": seconds,
+               "ms_per_tick": seconds / T * 1e3,
+               "launches": {k: v for k, v in launches.items() if v},
+               "one_launch_of_kernel_1_a_tick": all(c == (1, 0)
+                                                    for c in counts),
+               "decisions_equal_one_shard_every_tick": same_hist(
+                   hist, refs[known]),
+               "n_seen": int(glob.n_seen[0]), "vs_golden": errs,
+               "finite": all_finite(glob)}
+        if not known:
+            row["n_seen_equal_golden_every_tick"] = (
+                n_seen_ticks == gold[False]["n_seen_per_tick"])
+        out[name] = row
+        if not (row["one_launch_of_kernel_1_a_tick"]
+                and launches["grid_update"] == T and not any(
+                    v for k, v in launches.items() if k != "grid_update")):
+            fail(f"config 4 over {S20} shards, {name}: launches {launches}")
+        if not (row["decisions_equal_one_shard_every_tick"]
+                and row["finite"] and row.get(
+                    "n_seen_equal_golden_every_tick", True)):
+            fail(f"config 4 over {S20} shards, {name}: {row}")
+        for k, b in tol.items():
+            if not errs[k] <= b:
+                fail(f"config 4 over {S20} shards, {name}: golden {k} "
+                     f"{errs[k]} > {b}")
+        del st, glob
+    # fewer shards, and B4 worlds, for T20_SHORT ticks
+    for S in S20_SHORT:
+        _, hist, counts, snap = shard_tick_run(
+            dev, cfg, wl, one_process_mesh(S, dev), True, T20_SHORT,
+            snap={T20_SHORT})
+        errs, same = state_scale_err(snap[T20_SHORT],
+                                     snaps[True][T20_SHORT])
+        out[f"known_S{S}"] = {"T": T20_SHORT, "discrete_equal": same,
+                              "decisions_equal_one_shard_every_tick":
+                                  same_hist(hist, refs[True][:T20_SHORT]),
+                              f"vs_S{S20}_scale_err": errs}
+        if not (same and out[f"known_S{S}"][
+                "decisions_equal_one_shard_every_tick"] and all(
+                    e <= PROC_TOL for e in errs.values())):
+            fail(f"config 4 over {S} shards: {out[f'known_S{S}']}")
+    st8 = bigmap.make_runner(cfg, M, dev, batch=B4, mesh=mesh)(
+        blocked_ekf.shard_state(blocked_ekf.init(cfg, B4, device=dev), mesh),
+        wl, *bigmap.noise(device=dev), 0, T20_SHORT)
+    st8 = blocked_ekf.unshard_state(st8, mesh)
+    one = snaps[True][T20_SHORT]
+    worlds = [state_scale_err(blocked_ekf.BlockedState(
+        *(x[w:w + 1] for x in st8)), one) for w in range(B4)]
+    out[f"known_B{B4}"] = {
+        "T": T20_SHORT, "discrete_equal": all(s for _, s in worlds),
+        "bit_equal_to_batch_1": all(
+            torch.equal(getattr(st8, f)[w], getattr(one, f)[0])
+            for f in one._fields for w in range(B4)),
+        "scale_err": max(max(e.values()) for e, _ in worlds)}
+    if not (out[f"known_B{B4}"]["discrete_equal"]
+            and out[f"known_B{B4}"]["scale_err"] <= PROC_TOL):
+        fail(f"make_runner(batch={B4}) over {S20} shards: "
+             f"{out[f'known_B{B4}']}")
+    return out, snaps, hists, main_launches
+
+
+def two_process_worker(rank, device):
+    """One of PROCS20 processes on ``device`` (``cuda:0`` for every rank;
+    gloo, the collectives staged through the host): S20 shards, S20 /
+    PROCS20 local. The known and the
+    unknown deferred tick for T20_PROC ticks, the sequential known tick
+    for T20_PROC_SEQ, ms a tick, and config 5's f64 stage 2 over
+    PROCS20 x CONFIG5_PROC_SHARDS shards. Returns this rank's shards (on
+    the host) and numbers."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = mesh_lib.make_mesh(map_=S20, local_shards=S20 // PROCS20,
+                              device=dev)
+    cfg = EKFConfig(num_landmarks=N)
+    wl = bigmap.make_workload(N, T, M, device=dev)
+    out = {}
+    for name, known, deferred, ticks in (
+            ("known", True, True, T20_PROC),
+            ("unknown", False, True, T20_PROC),
+            ("sequential", True, False, T20_PROC_SEQ)):
+        reset_counters()
+        st, hist, counts, _ = shard_tick_run(dev, cfg, wl, mesh, known,
+                                             ticks, deferred=deferred)
+        out[name] = {"state": [x.cpu() for x in st],
+                     "hist": [[x.cpu() for x in h] for h in hist],
+                     "launches": kernel_launches()}
+        del st
+    out["times"] = {f"B={b}": shard_tick_times(dev, cfg, wl, mesh, b)
+                    for b in (1, B4)}
+    c = CONFIG5
+    m5 = mesh_lib.make_mesh(map_=PROCS20 * CONFIG5_PROC_SHARDS,
+                            local_shards=CONFIG5_PROC_SHARDS, device=dev)
+    prob64 = megamap.synthesize(c["N"], c["T"], c["obs_per_pose"],
+                                dtype=torch.float64)
+    s1 = pose_graph.optimize_host(prob64.graph, iters=c["pg_iters"]).poses
+    part, step = config5_step(prob64, s1, m5, dev)
+    o, secs = timed_run(step, part)
+    out["config5"] = {"poses": o.poses.cpu(), "landmarks": o.landmarks.cpu(),
+                      "stage2_seconds": secs,
+                      "collectives": m5.collectives,
+                      "host_copies": m5.host_copies,
+                      "collective_s": m5.collective_s}
+    return out
+
+
+def phase_config4_sharded(dev, cfg, st4, wl4, config5_f64):
+    """Phase 20 (see the module docstring)."""
+    Q, R = bigmap.noise(device=dev)
+    t_start = time.perf_counter()
+    plane, timing = shard_plane_kernel(cfg, st4, wl4, Q, R, dev)
+    emit(phase="config4_sharded_kernel", N=N, M=M, S=S20, B=B4, **plane)
+    one, snaps, hists, launches = phase_config4_sharded_one(dev, cfg)
+    emit(phase="config4_sharded_one_process", N=N, M=M, **one,
+         proc_tol=PROC_TOL, golden_tol={"known": GOLD_TOL,
+                                        "unknown": GOLD_UNKNOWN_TOL})
+
+    # (c) two processes sharing the card
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_cluster(two_process_worker, PROCS20, str(dev),
+                                 timeout=PROC20_TIMEOUT)
+    two = {"seconds": time.perf_counter() - t0, "processes": PROCS20,
+           "local_shards": S20 // PROCS20, "device": f"{dev}, both ranks"}
+    L = S20 // PROCS20
+    mesh8 = one_process_mesh(S20, dev)
+    seq_ref, _, _, _ = shard_tick_run(
+        dev, cfg, bigmap.make_workload(N, T, M, device=dev), mesh8, True,
+        T20_PROC_SEQ, deferred=False)
+    seq_ref = blocked_ekf.unshard_state(seq_ref, mesh8)
+    for name, known, ticks in (("known", True, T20_PROC),
+                               ("unknown", False, T20_PROC),
+                               ("sequential", True, T20_PROC_SEQ)):
+        # the state against the one-process run's; the decisions against
+        # (b)'s deferred run, tick by tick (the same semantics)
+        want = seq_ref if name == "sequential" else snaps[known][ticks]
+        errs, discrete, bit = {}, True, True
+        for r, res in enumerate(ranks):
+            got = blocked_ekf.BlockedState(*res[name]["state"])
+            part = blocked_ekf.shard_state(
+                blocked_ekf.BlockedState(*(x.cpu() for x in want)),
+                types.SimpleNamespace(local_shards=L, shards=S20, rank=r))
+            e, d = state_scale_err(got, part)
+            discrete &= d
+            bit &= all(torch.equal(x, y) for x, y in zip(got, part))
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        one_hist = hists[known][:ticks]
+        row = {"T": ticks, "bit_equal_one_process": bit,
+               "discrete_equal": discrete, "scale_err": errs,
+               "decisions_equal_one_process_every_tick": all(
+                   same_hist(res[name]["hist"], one_hist) for res in ranks),
+               "launches": [res[name]["launches"] for res in ranks]}
+        two[name] = row
+        if not (row["discrete_equal"]
+                and row["decisions_equal_one_process_every_tick"]
+                and all(v <= PROC_TOL for v in errs.values())):
+            fail(f"two processes, {name}: {row}")
+        if name != "sequential" and any(
+                x["grid_update"] != ticks or x["seq_scan"]
+                for x in row["launches"]):
+            fail(f"two processes, {name}: launches {row['launches']}")
+    two["times"] = [res["times"] for res in ranks]
+    f64_poses, f64_lms = config5_f64
+    n5 = CONFIG5["N"] // PROCS20
+    c5 = {"shards": PROCS20 * CONFIG5_PROC_SHARDS, "ranks": []}
+    for r, res in enumerate(ranks):
+        o = res["config5"]
+        c5["ranks"].append({
+            "stage2_seconds": o["stage2_seconds"],
+            "collectives": o["collectives"], "host_copies": o["host_copies"],
+            "collective_s": o["collective_s"],
+            "pose_max_diff_m": max_diff(o["poses"], f64_poses),
+            "landmark_max_diff_m": max_diff(o["landmarks"],
+                                            f64_lms[r * n5:(r + 1) * n5])})
+    two["config5_f64_vs_phase19_4_shards"] = c5
+    if any(max(x["pose_max_diff_m"], x["landmark_max_diff_m"])
+           > CONFIG5_F64_TOL for x in c5["ranks"]):
+        fail(f"config 5 over two processes: {c5}")
+    emit(phase="config4_sharded_two_processes", N=N, M=M, S=S20, **two,
+         proc_tol=PROC_TOL, f64_tol=CONFIG5_F64_TOL)
+
+    # (d) ms a tick in one process at S = 1, 2, 8 and B = 1, B4
+    ticks = {f"S={S} B={b}": shard_tick_times(
+        dev, cfg, bigmap.make_workload(N, T, M, device=dev),
+        None if S == 1 else one_process_mesh(S, dev), b)
+        for S in (1, 2, S20) for b in (1, B4)}
+    kernel = shard_plane_times(*timing)
+    emit(phase="config4_sharded_times", N=N, M=M, nvidia_smi=nvidia_smi(),
+         one_process=ticks, two_processes=two["times"],
+         kernel_1_shard_fold=kernel,
+         prediction="PERF.md section 5: 30-60 ms a tick at S > 1 (the "
+                    "plain sharded scan), 2.5-2.7 ms at S = 1",
+         phase_seconds=time.perf_counter() - t_start)
+    return launches, plane["max_abs_err"], kernel
 
 
 def ptxas_resources(text: str):
@@ -3387,9 +3849,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_configs12(dev)
     torch.cuda.empty_cache()
-    b_launches, b_errs, b_rows = phase_config4_batch(dev)
+    b_launches, b_errs, b_rows, st4, wl4 = phase_config4_batch(dev)
     torch.cuda.empty_cache()
-    phase_config5(dev)
+    _, config5_f64 = phase_config5(dev)
+    torch.cuda.empty_cache()
+    s_launches, s_err, s_row = phase_config4_sharded(dev, cfg, st4, wl4,
+                                                     config5_f64)
+    del st4, wl4
 
     launches = dict(launches, seq_scan_unknown=unk_launches["seq_scan"],
                     cov_update=dense_launches, circle_moments=cm_launches,
@@ -3415,6 +3881,14 @@ def main() -> int:
         lib[key] = b_rows[k]["library_ms"]
         paths[key] = (f"config 4 at {B4} worlds, run_bigmap(batch={B4}), "
                       f"one launch a tick")
+    key = "grid_update_shards"
+    launches[key], errs[key] = s_launches["grid_update"], s_err
+    per_call[key] = bounds[key] = s_row
+    lib[key] = s_row["library_ms"]
+    paths[key] = (f"config 4 over {S20} map shards in one process (T={T}, "
+                  f"known): one launch a tick for every shard's "
+                  f"(2, 2, N/{S20}, N) planes; the (S B) = {S20 * B4} plane "
+                  f"sets of phase 20 (a) timed")
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"], launches=launches[k],
                     max_abs_err=errs[k], ms=per_call[k]["ms"],

@@ -46,7 +46,9 @@ from ._build import check, library, stream_handle
 from ...device import resolve
 from ...models.ekf_slam import _inv2x2
 from ...ops import se2
-from ...parallel.blocked_ekf import _associate_comp, _h5_coeffs
+from ...parallel.blocked_ekf import (_associate_comp, _bc, _h5_coeffs,
+                                      _slot, lead_index, owner_values,
+                                      shard_offset)
 
 MAX_MEAS = 64   # the CUDA kernel's op-kind masks and packet table
 MAX_CLUSTER = 16        # CTAs a cluster (8 is portable, 16 Hopper's most)
@@ -172,27 +174,36 @@ def plan_lanes(plan: dict, N: int) -> torch.Tensor:
     return torch.where((local < plan["per_cta"]) & (n < N), n, -1)
 
 
-def _col_at(mm0p, Kb, HSb, CRb, gb, kb, j, g, g1, lane):
-    """Grid column g (comps (4, N)) after the tick's ops 0..j-1: the frozen
-    column, minus earlier rank-2 updates, with earlier init overwrites."""
-    col = mm0p.index_select(2, g1)[:, :, 0]            # col[c][n] = mm0p[c, n, g]
-    hs_g = HSb.index_select(2, g1)[:, :, 0]            # (M, 4)
-    cr_g = CRb.index_select(2, g1)[:, :, 0]
+def _col_at(mm0p, Kb, CRb, gb, kb, j, g, hs_g, cr_g, grow, ix):
+    """Grid column g (comps (..., 4, Nl), the local rows) after the tick's
+    ops 0..j-1: the frozen column, minus earlier rank-2 updates, with
+    earlier init overwrites. ``hs_g`` / ``cr_g`` (..., M, 4) are the
+    column-g packets of the op buffers (the owner's), ``grow`` the local
+    rows' global slots."""
+    sl = slice(None)
+    col = mm0p[(*ix, sl, sl, g)]                 # col[c][n] = mm0p[c, n, g]
     for i in range(j):
-        is_upd = kb[i] == 1
-        is_init = kb[i] == 2
-        s_i = gb[i]
-        k, h = Kb[i], hs_g[i]
-        corr = torch.stack([k[0] * h[0] + k[1] * h[1], k[0] * h[2] + k[1] * h[3],
-                            k[2] * h[0] + k[3] * h[1], k[2] * h[2] + k[3] * h[3]])
-        col = torch.where(is_upd, col - corr, col)
+        is_upd = kb[..., i] == 1
+        is_init = kb[..., i] == 2
+        s_i = gb[..., i]
+        k, h = Kb[..., i, :, :], hs_g[..., i, :, None]
+        corr = torch.stack([
+            k[..., 0, :] * h[..., 0, :] + k[..., 1, :] * h[..., 1, :],
+            k[..., 0, :] * h[..., 2, :] + k[..., 1, :] * h[..., 3, :],
+            k[..., 2, :] * h[..., 0, :] + k[..., 3, :] * h[..., 1, :],
+            k[..., 2, :] * h[..., 2, :] + k[..., 3, :] * h[..., 3, :]],
+            dim=-2)
+        col = torch.where(_bc(is_upd, 2), col - corr, col)
         # init at s_i == g: the whole column is the cross strip, comp
         # (p, q) of the column being comp (q, p) of the stored strip
-        col = torch.where(is_init & (s_i == g), CRb[i][[0, 2, 1, 3]], col)
+        cr = CRb[..., i, :, :]
+        col = torch.where(_bc(is_init & (s_i == g), 2), torch.stack(
+            [cr[..., 0, :], cr[..., 2, :], cr[..., 1, :], cr[..., 3, :]],
+            dim=-2), col)
         # init at another slot: row s_i of this column <- strip column g
-        hit_row = (lane == s_i)[None, :]
-        col = torch.where(is_init & (s_i != g) & hit_row, cr_g[i][:, None],
-                          col)
+        hit_row = (grow == s_i[..., None])[..., None, :]
+        col = torch.where(_bc(is_init & (s_i != g), 2) & hit_row,
+                          cr_g[..., i, :, None], col)
     return col
 
 
@@ -203,7 +214,7 @@ def _gate_margin(dist, any_hit, d_first, match_gate, new_gate):
     decision only where this is near 0."""
     finite = torch.isfinite(dist)
     to_new = torch.where(finite, (dist - new_gate).abs() / new_gate,
-                         torch.full_like(dist, float("inf"))).amin()
+                         torch.full_like(dist, float("inf"))).amin(-1)
     to_match = torch.where(any_hit, (d_first - match_gate).abs() / match_gate,
                            torch.full_like(d_first, float("inf")))
     return torch.minimum(to_new, to_match)
@@ -213,40 +224,56 @@ def reference_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
                        zs, valid, ids, R, *, known: bool = True,
                        match_gate: float = 0.01, new_gate: float = 60.0,
                        wrap_innovation: bool = False,
-                       symmetrize: bool = True, gate_margins=None):
+                       symmetrize: bool = True, gate_margins=None,
+                       mesh=None):
     """Plain PyTorch scan (f32 or f64). Arguments and returns as
-    :func:`deferred_seq_scan`; every selection is a ``torch.where``, as in
-    the XLA body, so no value goes back to the host.
+    :func:`deferred_seq_scan`, for any leading dims; every selection is a
+    ``torch.where``, as in the XLA body, so no value goes back to the host.
 
-    ``gate_margins`` (a list, unknown association only) receives one 0-dim
+    With ``mesh`` (a ``parallel.mesh.MapMesh``) it is the scan of map
+    shards, the JAX ``_make_sharded_deferred`` body at map > 1: the strips
+    (``mm2``, ``rm6``, ``diag4``, ``seen``) and the frozen planes ``mm0p``
+    (..., 4, Nl, N) are this process's shards, (L, B, ...); the robot
+    values, ``zs``, ``valid`` and ``ids`` lead with B. A measurement reads
+    slot g's values from its owner (one packed psum, and one for its
+    ``Sigma H^T`` block), the unknown first hit is a pmin; ``Kb``, ``HSb``
+    and ``CRb`` are returned shard-local (L, B, M, 4, Nl), the decisions
+    and robot values with B.
+
+    ``gate_margins`` (a list, unknown association only) receives one
     tensor per measurement: its smallest relative margin to either gate
     (:func:`_gate_margin`; inf for an inert measurement)."""
-    M = zs.shape[0]
-    N = mm2.shape[1]
+    if mesh is not None and gate_margins is not None:
+        raise ValueError("gate_margins needs one map shard")
+    M = zs.shape[-2]
+    Nl, N = mm0p.shape[-2:]
     dtype, dev = mm2.dtype, mm2.device
-    lane = torch.arange(N, device=dev)
-    Kb = torch.zeros((M, 4, N), dtype=dtype, device=dev)
+    lead, rlead = mm2.shape[:-2], mean_r.shape[:-1]
+    ix = lead_index(lead, dev)
+    grow = shard_offset(mesh, Nl, dev)[..., None] + torch.arange(Nl,
+                                                                 device=dev)
+    sl = slice(None)
+    Kb = torch.zeros((*lead, M, 4, Nl), dtype=dtype, device=dev)
     HSb = torch.zeros_like(Kb)
     CRb = torch.zeros_like(Kb)
-    gb = torch.zeros(M, dtype=torch.int32, device=dev)
-    kb = torch.zeros(M, dtype=torch.int32, device=dev)
-    stopped = torch.zeros((), dtype=torch.bool, device=dev)
+    gb = torch.zeros((*rlead, M), dtype=torch.int32, device=dev)
+    kb = torch.zeros((*rlead, M), dtype=torch.int32, device=dev)
+    stopped = torch.zeros(rlead, dtype=torch.bool, device=dev)
+    r = lambda t, *i: t[(..., *i, None)]   # a robot value on the lanes
     for j in range(M):
-        z = zs[j]
+        z = zs[..., j, :]
         if known:
-            g = ids[j].long()
-            v = valid[j] & (g >= 0) & (g < N)
-            g1 = g.clamp(0, N - 1).reshape(1)
-            seen_g = seen.index_select(0, g1)[0]
-            is_new = v & ~seen_g
-            do_update = v & seen_g
+            g = ids[..., j].long()
+            v = valid[..., j] & (g >= 0) & (g < N)
+            g = g.clamp(0, N - 1)
         else:
             # reference first-hit gating against the carried diag4
             # (blocked_ekf.py:756-772 of the JAX package)
-            act = valid[j] & ~stopped
+            act = valid[..., j] & ~stopped
             any_hit, first, d_first, dist = _associate_comp(
                 mean_r, mm2, cov_rr, rm6, seen, z, R, diag4,
-                new_gate=new_gate, wrap_innovation=wrap_innovation)
+                new_gate=new_gate, wrap_innovation=wrap_innovation,
+                mesh=mesh)
             no_seen = n_seen == 0
             cap_full = n_seen >= N
             is_match = act & ~no_seen & any_hit & (d_first < match_gate)
@@ -256,94 +283,109 @@ def reference_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
             do_update = is_match
             g = torch.where(is_match, first,
                             torch.clamp_max(n_seen, N - 1).long())
-            g1 = g.reshape(1)
             if gate_margins is not None:
                 gate_margins.append(torch.where(
                     act, _gate_margin(dist, any_hit, d_first, match_gate,
                                       new_gate),
                     torch.full_like(d_first, float("inf"))))
+        # slot g's values, from its owner
+        owns, gs = _slot(mesh, g, Nl)
+        seen_g, mj, rm_j, hs_g, cr_g = owner_values(
+            mesh, owns, seen[(*ix, gs)], mm2[(*ix, sl, gs)],
+            rm6[(*ix, sl, gs)], HSb[(*ix, sl, sl, gs)],
+            CRb[(*ix, sl, sl, gs)])
+        if known:
+            is_new = v & ~seen_g
+            do_update = v & seen_g
 
         # ---- measurement geometry off the sequential means ----
-        mj = mm2.index_select(1, g1)[:, 0]
         H5, z_hat = _h5_coeffs(mean_r, mj)
         dz = z - z_hat
         if wrap_innovation:
-            dz = torch.stack([dz[0], se2.normalize_angle(dz[1])])
+            dz = torch.stack([dz[..., 0], se2.normalize_angle(dz[..., 1])],
+                             dim=-1)
 
         # ---- UPDATE branch ----
-        rm_j = rm6.index_select(1, g1)[:, 0].reshape(3, 2)
-        SHt_r = torch.cat([cov_rr, rm_j], dim=1) @ H5.T             # (3, 2)
-        col4 = _col_at(mm0p, Kb, HSb, CRb, gb, kb, j, g, g1, lane)
+        SHt_r = (torch.cat([cov_rr, rm_j.reshape(*rlead, 3, 2)], dim=-1)
+                 @ H5.transpose(-1, -2))                           # (3, 2)
+        col4 = _col_at(mm0p, Kb, CRb, gb, kb, j, g, hs_g, cr_g, grow, ix)
         s4 = torch.stack([
-            rm6[0 + p] * H5[q, 0] + rm6[2 + p] * H5[q, 1]
-            + rm6[4 + p] * H5[q, 2]
-            + col4[p * 2 + 0] * H5[q, 3] + col4[p * 2 + 1] * H5[q, 4]
-            for p in range(2) for q in range(2)])                   # (4, N)
-        SHt_j = s4.index_select(1, g1)[:, 0].reshape(2, 2)
-        psi = H5 @ torch.cat([SHt_r, SHt_j], dim=0) + R
+            rm6[..., 0 + p, :] * r(H5, q, 0) + rm6[..., 2 + p, :] * r(H5, q, 1)
+            + rm6[..., 4 + p, :] * r(H5, q, 2)
+            + col4[..., p * 2 + 0, :] * r(H5, q, 3)
+            + col4[..., p * 2 + 1, :] * r(H5, q, 4)
+            for p in range(2) for q in range(2)], dim=-2)          # (4, Nl)
+        SHt_j, = owner_values(mesh, owns, s4[(*ix, sl, gs)])
+        psi = H5 @ torch.cat([SHt_r, SHt_j.reshape(*rlead, 2, 2)],
+                             dim=-2) + R
         psi_inv = _inv2x2(psi)
         K_r = SHt_r @ psi_inv
         k4 = torch.stack([
-            s4[p * 2 + 0] * psi_inv[0, r] + s4[p * 2 + 1] * psi_inv[1, r]
-            for p in range(2) for r in range(2)])
-        upd_mean_r = mean_r + K_r @ dz
-        upd_mean_r = torch.cat([se2.normalize_angle(upd_mean_r[:1]),
-                                upd_mean_r[1:]])
-        upd_mm2 = mm2 + torch.stack([k4[0] * dz[0] + k4[1] * dz[1],
-                                     k4[2] * dz[0] + k4[3] * dz[1]])
-        upd_cov_rr = cov_rr - K_r @ SHt_r.T
+            s4[..., p * 2 + 0, :] * r(psi_inv, 0, q)
+            + s4[..., p * 2 + 1, :] * r(psi_inv, 1, q)
+            for p in range(2) for q in range(2)], dim=-2)
+        upd_mean_r = mean_r + (K_r @ dz[..., None])[..., 0]
+        upd_mean_r = torch.cat([se2.normalize_angle(upd_mean_r[..., :1]),
+                                upd_mean_r[..., 1:]], dim=-1)
+        upd_mm2 = mm2 + torch.stack(
+            [k4[..., 0, :] * r(dz, 0) + k4[..., 1, :] * r(dz, 1),
+             k4[..., 2, :] * r(dz, 0) + k4[..., 3, :] * r(dz, 1)], dim=-2)
+        upd_cov_rr = cov_rr - K_r @ SHt_r.transpose(-1, -2)
         if symmetrize:
-            upd_cov_rr = 0.5 * (upd_cov_rr + upd_cov_rr.T)
+            upd_cov_rr = 0.5 * (upd_cov_rr + upd_cov_rr.transpose(-1, -2))
         upd_rm6 = rm6 - torch.stack([
-            K_r[i, 0] * s4[p * 2 + 0] + K_r[i, 1] * s4[p * 2 + 1]
-            for i in range(3) for p in range(2)])
+            r(K_r, i, 0) * s4[..., p * 2 + 0, :]
+            + r(K_r, i, 1) * s4[..., p * 2 + 1, :]
+            for i in range(3) for p in range(2)], dim=-2)
 
         # ---- INIT branch: strips only; grid writes buffered ----
-        th, x, y = mean_r[0], mean_r[1], mean_r[2]
-        a = z[1] + th
-        r_ = z[0]
+        th, x, y = mean_r[..., 0], mean_r[..., 1], mean_r[..., 2]
+        a = z[..., 1] + th
+        r_ = z[..., 0]
         sa, ca = torch.sin(a), torch.cos(a)
-        m_new = torch.stack([x + r_ * ca, y + r_ * sa])
+        m_new = torch.stack([x + r_ * ca, y + r_ * sa], dim=-1)
         one, zero = torch.ones_like(r_), torch.zeros_like(r_)
-        Gx = torch.stack([torch.stack([-r_ * sa, one, zero]),
-                          torch.stack([r_ * ca, zero, one])])
-        Gz = torch.stack([torch.stack([ca, -r_ * sa]),
-                          torch.stack([sa, r_ * ca])])
+        Gx = torch.stack([torch.stack([-r_ * sa, one, zero], dim=-1),
+                          torch.stack([r_ * ca, zero, one], dim=-1)], dim=-2)
+        Gz = torch.stack([torch.stack([ca, -r_ * sa], dim=-1),
+                          torch.stack([sa, r_ * ca], dim=-1)], dim=-2)
         cross4 = torch.stack([
-            Gx[p, 0] * rm6[0 + q] + Gx[p, 1] * rm6[2 + q]
-            + Gx[p, 2] * rm6[4 + q]
-            for p in range(2) for q in range(2)])                   # (4, N)
-        B_own = (Gx @ cov_rr) @ Gx.T + (Gz @ R) @ Gz.T
-        hit = (lane == g)[None, :]
-        cross4 = torch.where(hit, B_own.reshape(4, 1), cross4)
-        cross_r = (Gx @ cov_rr).T
-        ini_mm2 = torch.where(hit, m_new[:, None], mm2)
-        ini_rm6 = torch.where(hit, cross_r.reshape(6, 1), rm6)
-        seen_upd = seen | hit[0]
+            r(Gx, p, 0) * rm6[..., 0 + q, :] + r(Gx, p, 1) * rm6[..., 2 + q, :]
+            + r(Gx, p, 2) * rm6[..., 4 + q, :]
+            for p in range(2) for q in range(2)], dim=-2)          # (4, Nl)
+        B_own = ((Gx @ cov_rr) @ Gx.transpose(-1, -2)
+                 + (Gz @ R) @ Gz.transpose(-1, -2))
+        own = B_own.reshape(*rlead, 4, 1)
+        hit = (grow == g[..., None])[..., None, :]
+        cross4 = torch.where(hit, own, cross4)
+        cross_r = (Gx @ cov_rr).transpose(-1, -2)
+        ini_mm2 = torch.where(hit, m_new[..., None], mm2)
+        ini_rm6 = torch.where(hit, cross_r.reshape(*rlead, 6, 1), rm6)
+        seen_upd = seen | hit[..., 0, :]
 
         # ---- select sequential state ----
         diag_upd = diag4 - torch.stack([
-            k4[p * 2 + 0] * s4[r * 2 + 0] + k4[p * 2 + 1] * s4[r * 2 + 1]
-            for p in range(2) for r in range(2)])
-        mean_r = torch.where(do_update, upd_mean_r, mean_r)
-        mm2 = torch.where(do_update, upd_mm2,
-                          torch.where(is_new, ini_mm2, mm2))
-        cov_rr = torch.where(do_update, upd_cov_rr, cov_rr)
-        rm6 = torch.where(do_update, upd_rm6,
-                          torch.where(is_new, ini_rm6, rm6))
+            k4[..., p * 2 + 0, :] * s4[..., q * 2 + 0, :]
+            + k4[..., p * 2 + 1, :] * s4[..., q * 2 + 1, :]
+            for p in range(2) for q in range(2)], dim=-2)
+        upd, new = _bc(do_update, 2), _bc(is_new, 2)
+        mean_r = torch.where(_bc(do_update, 1), upd_mean_r, mean_r)
+        mm2 = torch.where(upd, upd_mm2, torch.where(new, ini_mm2, mm2))
+        cov_rr = torch.where(upd, upd_cov_rr, cov_rr)
+        rm6 = torch.where(upd, upd_rm6, torch.where(new, ini_rm6, rm6))
         n_seen = n_seen + is_new.to(n_seen.dtype)
-        seen = torch.where(is_new, seen_upd, seen)
-        diag4 = torch.where(do_update, diag_upd, diag4)
-        diag4 = torch.where(is_new & hit, B_own.reshape(4, 1), diag4)
+        seen = torch.where(_bc(is_new, 1), seen_upd, seen)
+        diag4 = torch.where(upd, diag_upd, diag4)
+        diag4 = torch.where(new & hit, own, diag4)
 
         # ---- record the op ----
         kind = torch.where(do_update, 1, torch.where(is_new, 2, 0)
                            ).to(torch.int32)
-        Kb[j] = torch.where(do_update, k4, torch.zeros_like(k4))
-        HSb[j] = torch.where(do_update, s4, torch.zeros_like(s4))
-        CRb[j] = torch.where(is_new, cross4, torch.zeros_like(cross4))
-        gb[j] = torch.where(kind > 0, g, -1)
-        kb[j] = kind
+        Kb[..., j, :, :] = torch.where(upd, k4, torch.zeros_like(k4))
+        HSb[..., j, :, :] = torch.where(upd, s4, torch.zeros_like(s4))
+        CRb[..., j, :, :] = torch.where(new, cross4, torch.zeros_like(cross4))
+        gb[..., j] = torch.where(kind > 0, g, -1)
+        kb[..., j] = kind
     return (mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, Kb, HSb, CRb,
             gb, kb)
 

@@ -10,8 +10,10 @@ and broadcast to every world, as in the JAX package. :func:`make_runner`
 associates by id; :func:`make_unknown_runner` drops the ids and associates
 by the reference's Mahalanobis first-hit gates. Either runs the deferred
 tick (one grid pass a tick, the default) or the sequential one
-(``deferred=False``: one grid pass a measurement), on one card; map
-shards over several devices are ROADMAP queue 5.
+(``deferred=False``: one grid pass a measurement), on the global state,
+or with ``mesh=`` (``parallel/mesh.py``) on this process's map shards of
+it (``blocked_ekf.shard_state``); with a data axis each process's worlds
+are its own.
 
 The kernels route as in ``ops/kernels``: the CUDA kernels for a state on
 the card, the plain versions for a state on the CPU.
@@ -89,29 +91,31 @@ def measurements(wl: BigMapWorkload, t: int):
 
 
 def _make_step(cfg, M, device, known, deferred, seq_kernel, grid_kernel,
-               gate_margins=None):
+               gate_margins=None, mesh=None):
     if deferred:
         return blocked_ekf.make_deferred_step(
             cfg, M, device, known=known, seq_kernel=seq_kernel,
-            grid_kernel=grid_kernel, gate_margins=gate_margins)
+            grid_kernel=grid_kernel, gate_margins=gate_margins, mesh=mesh)
     if seq_kernel or grid_kernel or gate_margins is not None:
         raise ValueError("the sequential tick has no kernels and no gate "
                          "margins")
-    return blocked_ekf.make_sequential_step(cfg, M, device, known=known)
+    return blocked_ekf.make_sequential_step(cfg, M, device, known=known,
+                                            mesh=mesh)
 
 
 def make_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
                 deferred: bool = True, seq_kernel: bool | None = None,
-                grid_kernel: bool | None = None):
+                grid_kernel: bool | None = None, mesh=None):
     """Build ``run(state, workload, Q, R, t0, ticks) -> state``: the tick
     applied ``ticks`` times to a state of ``batch`` worlds, the
     measurements made on the device each tick and broadcast to every
     world. ``deferred=True`` is ``blocked_ekf.make_deferred_step`` (the
     kernels, once a tick for all worlds), ``False``
-    ``blocked_ekf.make_sequential_step``; the same semantics. The grid is
-    updated in place."""
+    ``blocked_ekf.make_sequential_step``; the same semantics. With
+    ``mesh`` the state is this process's map shards. The grid is updated
+    in place."""
     step = _make_step(cfg, M, device, True, deferred, seq_kernel,
-                      grid_kernel)
+                      grid_kernel, mesh=mesh)
     valid = torch.ones((batch, M), dtype=torch.bool, device=device)
 
     def run(state, wl: BigMapWorkload, Q, R, t0: int, ticks: int):
@@ -127,13 +131,14 @@ def make_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
 def make_unknown_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
                         deferred: bool = True,
                         seq_kernel: bool | None = None,
-                        grid_kernel: bool | None = None, gate_margins=None):
+                        grid_kernel: bool | None = None, gate_margins=None,
+                        mesh=None):
     """Like :func:`make_runner` with UNKNOWN association: the same
     measurements without their ids, each gated by the reference's
     first-hit Mahalanobis scan (``gate_margins`` as in
     ``blocked_ekf.make_deferred_step``, deferred tick only)."""
     step = _make_step(cfg, M, device, False, deferred, seq_kernel,
-                      grid_kernel, gate_margins)
+                      grid_kernel, gate_margins, mesh)
     valid = torch.ones((batch, M), dtype=torch.bool, device=device)
 
     def run(state, wl: BigMapWorkload, Q, R, t0: int, ticks: int):
@@ -159,17 +164,20 @@ def noise(dtype=torch.float32, device=None):
 def run_bigmap(N: int = 2048, T: int = 32, M: int = 8, batch: int = 1,
                deferred: bool = True, dtype=torch.float32, device=None,
                seq_kernel: bool | None = None,
-               grid_kernel: bool | None = None):
-    """End-to-end config-4 run of ``batch`` worlds on one device (the JAX
-    ``run_bigmap`` on a one-device mesh; map shards are ROADMAP queue 5);
-    returns (final BlockedState, workload). ``deferred`` as in
-    :func:`make_runner`. ``device=None`` is the card
-    (``device.resolve``)."""
-    device = resolve(device)
+               grid_kernel: bool | None = None, mesh=None):
+    """End-to-end config-4 run of ``batch`` worlds (the JAX
+    ``run_bigmap``): on ``device`` (``None``: the card), or over ``mesh``'s
+    map shards (on its device), when the returned state is this process's
+    shards (``blocked_ekf.unshard_state`` gathers them); returns (final
+    BlockedState, workload). ``deferred`` as in :func:`make_runner`."""
+    device = resolve(device) if mesh is None else mesh.device
     cfg = EKFConfig(num_landmarks=N)
     wl = make_workload(N, T, M, dtype=dtype, device=device)
     runner = make_runner(cfg, M, device, batch=batch, deferred=deferred,
-                         seq_kernel=seq_kernel, grid_kernel=grid_kernel)
+                         seq_kernel=seq_kernel, grid_kernel=grid_kernel,
+                         mesh=mesh)
     state = blocked_ekf.init(cfg, batch, dtype=dtype, device=device)
+    if mesh is not None:
+        state = blocked_ekf.shard_state(state, mesh)
     Q, R = noise(dtype, device)
     return runner(state, wl, Q, R, 0, T), wl

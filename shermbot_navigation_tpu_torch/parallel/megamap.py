@@ -12,7 +12,8 @@ classic two-stage pipeline:
    loop-closure edge give globally consistent keyframes;
 2. **map-sharded Schur bundle refinement** (``parallel/schur_dist``, on
    the device): jointly polish all keyframes and landmarks, the landmarks
-   and their observations split into map shards along a leading axis.
+   and their observations split into map shards, a process holding its
+   shards on a leading axis (``parallel/mesh.py``).
 
 :func:`synthesize` builds the workload in numpy from ``default_rng(seed)``
 with the JAX package's very code, so both packages refine the same arrays.
@@ -30,6 +31,7 @@ from ..device import resolve
 from ..models import pose_graph as pg
 from ..models import schur
 from . import schur_dist
+from .mesh import MapMesh
 
 
 class MegaMapProblem(NamedTuple):
@@ -144,23 +146,25 @@ def synthesize(N: int, T: int, obs_per_pose: int, seed: int = 0,
 
 
 def run_megamap(N: int = 1024, T: int = 64, obs_per_pose: int = 16,
-                n_shards: int = 1, pg_iters: int = 8, gn_iters: int = 4,
+                mesh=1, pg_iters: int = 8, gn_iters: int = 4,
                 cg_iters: int = 48, dtype=torch.float32, device=None):
     """Two-stage refinement; returns (problem, refined BundleProblem).
 
     Stage 1 (loop closure) runs on the host in float64; stage 2 (the
-    Schur refinement in ``n_shards`` map shards) on ``device`` (``None``:
-    the card, and raise where there is none), which the synthesized
-    arrays reach once, when stage 2 takes them. The refined problem's
-    tensors are on ``device``."""
-    device = resolve(device)
+    Schur refinement) over ``mesh``'s map shards: a ``MapMesh`` (on its
+    device; the refined problem holds this process's shards' landmarks
+    and observations), or a shard count for one process on ``device``
+    (``None``: the card, and raise where there is none). The synthesized
+    arrays reach the device once, when stage 2 takes them."""
+    if not isinstance(mesh, MapMesh):
+        mesh = MapMesh(int(mesh), resolve(device))
     prob = synthesize(N, T, obs_per_pose, dtype=dtype)
     # stage 1: loop closure on the pose graph, on the host in f64
     g = pg.optimize_host(prob.graph, iters=pg_iters)
     # stage 2: map-sharded Schur bundle refinement from the closed poses
     part = schur_dist.partition_problem(prob.bundle._replace(poses=g.poses),
-                                        n_shards)
+                                        mesh.shards)
     step = schur_dist.make_sharded_gn(
-        n_shards, T=T, N=N, M=part.obs_t.shape[0], cg_iters=cg_iters,
-        gn_steps=gn_iters, device=device)
+        mesh, T=T, N=N, M=part.obs_t.shape[0], cg_iters=cg_iters,
+        gn_steps=gn_iters)
     return prob, step(part)

@@ -1,17 +1,17 @@
-"""Map-sharded Schur-complement refinement (BASELINE config 5) on one
-device (port of ``shermbot_navigation_tpu.parallel.schur_dist``).
+"""Map-sharded Schur-complement refinement (BASELINE config 5) (port of
+``shermbot_navigation_tpu.parallel.schur_dist``).
 
 The bundle problem of ``models/schur.py`` is split into S map shards: a
 shard owns a block of landmarks together with every observation that
 references them (observations are pre-partitioned by landmark id, so the
 landmark-side products ``Hll``, ``Hlp v``, ``Hpl u`` are local to the
 shard). The JAX package runs the shards on a device mesh under
-``shard_map``; here they are a leading shard axis on one device:
-landmarks ``(S, N/S, 2)``, observations ``(S, M/S)``, pose-space vectors
-``(T, 3)`` replicated. Each CG matvec combines the shards' pose-space
-partials ``(S, T, 3)`` with one :func:`shard_sum`, the stand-in for the
-JAX package's ``psum`` over the ``'map'`` axis; a multi-device run swaps
-that one function for an all-reduce.
+``shard_map``; here a process holds L of them on a leading local-shard
+axis (``parallel/mesh.py``): landmarks ``(L, N/S, 2)``, observations
+``(L, M/S)``, pose-space vectors ``(T, 3)`` replicated. Each CG matvec
+combines the shards' pose-space partials ``(L, T, 3)`` with one
+``mesh.psum`` (the JAX ``psum`` over ``'map'``: a sum over the local
+shards, then an all-reduce over the processes of the map group).
 
 The odometry-chain part of ``Hpp`` is O(T) and is computed once (the JAX
 package computes it redundantly on every shard: the same values).
@@ -31,13 +31,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve
 from ..models import schur
 from ..models.pose_graph import (PoseGraph, _assemble_rhs, _cg,
                                  _diag_blocks, _hv, _scatter, gauge_project)
 from ..models.pose_graph import residuals as pg_residuals
 from ..ops import se2
 from ..ops.smallalg import solve3
+from .mesh import MapMesh
 
 
 def _host(x) -> np.ndarray:
@@ -88,47 +88,52 @@ def partition_problem(prob: schur.BundleProblem, n_shards: int
     )
 
 
-def shard_sum(x: torch.Tensor) -> torch.Tensor:
-    """Combine the shards' partials ``(S, ...)`` into the replicated total:
-    the JAX package's ``psum(x, 'map')``, here a sum over the leading shard
-    axis of one device."""
-    return x.sum(0)
-
-
-def make_sharded_gn(n_shards: int, T: int, N: int, M: int,
+def make_sharded_gn(mesh, T: int, N: int, M: int,
                     cg_iters: int = 64, damping: float = 1e-6,
                     gn_steps: int = 1, device=None):
-    """Build the map-sharded Gauss-Newton refinement on ``device``
-    (``None``: the card).
+    """Build the map-sharded Gauss-Newton refinement over ``mesh``: a
+    ``MapMesh`` (on its device), or a shard count for one process on
+    ``device`` (``None``: the card).
 
     Returns ``step(prob) -> prob`` applying ``gn_steps`` GN iterations to a
-    partitioned problem (:func:`partition_problem`) with ``n_shards``
-    shards, T poses, N landmarks and M observation slots; the problem's
-    tensors go to ``device`` when the step takes them, and the result's
-    fields are there, flat as the input's.
+    partitioned problem (:func:`partition_problem`, the global one) with
+    S = ``mesh.shards`` shards, T poses, N landmarks and M observation
+    slots. The process takes its own shards' slice ``[r L, (r + 1) L)`` of
+    the (S, N/S) landmarks and (S, M/S) observations to the mesh's
+    device; the result is that slice (every shard's, flat as the input's,
+    in one process), with the refined poses.
     """
-    if N % n_shards or M % n_shards:
-        raise ValueError(f"n_shards={n_shards} must divide N={N} and M={M}")
-    device = resolve(device)
-    S, n_local, m_local = n_shards, N // n_shards, M // n_shards
+    if not isinstance(mesh, MapMesh):
+        mesh = MapMesh(int(mesh), device)
+    S, L = mesh.shards, mesh.local_shards
+    if N % S or M % S:
+        raise ValueError(f"{S} map shards must divide N={N} and M={M}")
+    device = mesh.device
+    n_local, m_local = N // S, M // S
+    lms = slice(mesh.rank * L * n_local, (mesh.rank + 1) * L * n_local)
+    obs = slice(mesh.rank * L * m_local, (mesh.rank + 1) * L * m_local)
 
     def step(prob: schur.BundleProblem) -> schur.BundleProblem:
-        prob = schur.BundleProblem(*(x.to(device) for x in prob))
         if prob.poses.shape[0] != T or prob.landmarks.shape[0] != N \
                 or prob.obs_t.shape[0] != M:
             raise ValueError(
                 f"problem of T={prob.poses.shape[0]}, "
                 f"N={prob.landmarks.shape[0]}, M={prob.obs_t.shape[0]}; "
                 f"step built for T={T}, N={N}, M={M}")
+        prob = prob._replace(landmarks=prob.landmarks[lms], **{
+            k: getattr(prob, k)[obs]
+            for k in ("obs_t", "obs_j", "obs_z", "obs_w")})
+        prob = schur.BundleProblem(*(x.to(device) for x in prob))
         poses = prob.poses
-        landmarks = prob.landmarks.reshape(S, n_local, 2)
+        landmarks = prob.landmarks.reshape(L, n_local, 2)
         for _ in range(gn_steps):
             poses, landmarks = _gn_once(prob, poses, landmarks)
-        return prob._replace(poses=poses, landmarks=landmarks.reshape(N, 2))
+        return prob._replace(poses=poses,
+                             landmarks=landmarks.reshape(L * n_local, 2))
 
     def _gn_once(prob, cur_poses, cur_landmarks):
-        # local views: landmarks (S, Nl, 2); obs (S, Ml) referencing GLOBAL
-        # ids, flat index s * Nl + j_loc into the (S * Nl) landmark rows
+        # local views: landmarks (L, Nl, 2); obs (L, Ml) referencing GLOBAL
+        # ids, flat index l * Nl + j_loc into the (L * Nl) local rows
         dtype = cur_poses.dtype
         prob = prob._replace(poses=cur_poses)
 
@@ -144,14 +149,14 @@ def make_sharded_gn(n_shards: int, T: int, N: int, M: int,
         # ---- per-observation COMPONENT arrays, all (S, Ml) -------------
         # The 9 Jacobian nonzeros (ref slam_library.cpp:162-186) as flat
         # vectors, as the JAX package keeps them.
-        t = prob.obs_t.reshape(S, m_local)
-        jf = prob.obs_j.reshape(S, m_local)    # global id == flat index
-        w = prob.obs_w.reshape(S, m_local)
-        z = prob.obs_z.reshape(S, m_local, 2)
-        shard_off = (torch.arange(S, device=device, dtype=t.dtype)
+        t = prob.obs_t.reshape(L, m_local)
+        jf = prob.obs_j.reshape(L, m_local) - lms.start   # local flat index
+        w = prob.obs_w.reshape(L, m_local)
+        z = prob.obs_z.reshape(L, m_local, 2)
+        shard_off = (torch.arange(L, device=device, dtype=t.dtype)
                      * Tn)[:, None]
-        tf = (t + shard_off).reshape(-1)     # flat index into (S * T) rows
-        lflat = cur_landmarks.reshape(N, 2)
+        tf = (t + shard_off).reshape(-1)     # flat index into (L * T) rows
+        lflat = cur_landmarks.reshape(L * n_local, 2)
         pth = prob.poses[t, 0]
         dx = lflat[jf, 0] - prob.poses[t, 1]
         dy = lflat[jf, 1] - prob.poses[t, 2]
@@ -190,25 +195,26 @@ def make_sharded_gn(n_shards: int, T: int, N: int, M: int,
                     -vt[..., 0] + ab_x * vt[..., 1] + ab_y * vt[..., 2])
 
         def jl(u):
-            """J_lm applied to landmark-space u (S, Nl, 2) -> meas pair."""
-            uj = u.reshape(N, 2)[jf]
+            """J_lm applied to landmark-space u (L, Nl, 2) -> meas pair."""
+            uj = u.reshape(L * n_local, 2)[jf]
             ux, uy = uj[..., 0], uj[..., 1]
             return (lr_x * ux + lr_y * uy, lb_x * ux + lb_y * uy)
 
         def scat_t(*comps):
-            """Per-shard pose-space partials (S, T, len(comps))."""
+            """Per-shard pose-space partials (L, T, len(comps))."""
             vals = torch.stack(comps, dim=-1)
-            return _scatter(S * Tn, tf, vals.reshape(S * m_local, -1)
-                            ).view(S, Tn, -1)
+            return _scatter(L * Tn, tf, vals.reshape(L * m_local, -1)
+                            ).view(L, Tn, -1)
 
         def scat_j(c1, c2):
-            """Landmark-space values (S, Nl, 2) of the shards' own blocks."""
+            """Landmark-space values (L, Nl, 2) of the shards' own blocks."""
             vals = torch.stack([c1, c2], dim=-1).reshape(-1, 2)
-            return _scatter(N, jf.reshape(-1), vals).view(S, n_local, 2)
+            return _scatter(L * n_local, jf.reshape(-1), vals
+                            ).view(L, n_local, 2)
 
         def scat_l(c):
-            return _scatter(N, jf.reshape(-1), c.reshape(-1)
-                            ).view(S, n_local)
+            return _scatter(L * n_local, jf.reshape(-1), c.reshape(-1)
+                            ).view(L, n_local)
 
         # local Hll blocks (symmetric 2x2 per landmark, 3 component arrays)
         o1x, o2x = omega_w(lr_x, lb_x)        # (w Omega) column x
@@ -223,7 +229,7 @@ def make_sharded_gn(n_shards: int, T: int, N: int, M: int,
         ixx, ixy, iyy = Hyy / det, -Hxy / det, Hxx / det
 
         def hll_inv(u):
-            """Hll^-1 applied per landmark to u (S, Nl, 2)."""
+            """Hll^-1 applied per landmark to u (L, Nl, 2)."""
             ux, uy = u[..., 0], u[..., 1]
             return torch.stack([ixx * ux + ixy * uy,
                                 ixy * ux + iyy * uy], dim=-1)
@@ -247,14 +253,14 @@ def make_sharded_gn(n_shards: int, T: int, N: int, M: int,
             return scat_t(*jpT(o1, o2))
 
         def Sv(v):
-            # local contributions, then one shard_sum (the psum)
+            # local contributions, then one psum over the map shards
             u = hll_inv(hlp_v(v))
-            total = shard_sum(hpp_obs_v(v) - hpl_u_local(u))
+            total = mesh.psum(hpp_obs_v(v) - hpl_u_local(u))
             # odo part (with the gauge anchor) + damping, replicated
             return total + _hv(g, Ji, Jj, v, prob.anchor_w) + damping * v
 
-        bp = bp_odo + shard_sum(bp_obs_local)
-        rhs = -bp + shard_sum(hpl_u_local(hll_inv(bl_local)))
+        bp = bp_odo + mesh.psum(bp_obs_local)
+        rhs = -bp + mesh.psum(hpl_u_local(hll_inv(bl_local)))
         # block-Jacobi preconditioner: 3x3 diagonal blocks of Hpp
         # (odometry-chain part with the anchor + the shards' observation
         # parts summed; the damping last, as the JAX package adds it)
@@ -275,7 +281,7 @@ def make_sharded_gn(n_shards: int, T: int, N: int, M: int,
             torch.stack([Dflat[..., 1], Dflat[..., 3], Dflat[..., 4]], -1),
             torch.stack([Dflat[..., 2], Dflat[..., 4], Dflat[..., 5]], -1),
         ], dim=-2)
-        D = Dodo + shard_sum(Dobs) + damping * torch.eye(
+        D = Dodo + mesh.psum(Dobs) + damping * torch.eye(
             3, dtype=dtype, device=device)
 
         # preconditioned CG on the replicated pose space

@@ -27,6 +27,8 @@ same noise and part by summation order only (poses within 1e-4 over 12
 f32 ticks of config 2). A launch for B worlds gives each world the bits of
 its own one-world launch (no world reads another's operands), and config
 4's sequential tick makes the deferred tick's decisions at B worlds.
+Config 4 over 8 map shards in one process never waits for the device,
+and an nccl mesh whose two ranks share the card raises.
 Config 5's refinement (no kernel) runs on the card by default, equals the
 CPU run in f64 within 1e-9, its GN step never waits for the device, and a
 checkpoint of it loads back onto the card bit for bit.
@@ -839,7 +841,7 @@ def test_run_megamap_defaults_to_the_card(dev):
     in f64 it equals the CPU run within 1e-9 (the scatter-adds' atomics
     change only the summation order)."""
     here = torch.device("cuda", torch.cuda.current_device())
-    kw = dict(N=64, T=24, obs_per_pose=4, n_shards=4, dtype=torch.float64)
+    kw = dict(N=64, T=24, obs_per_pose=4, mesh=4, dtype=torch.float64)
     _, out = megamap.run_megamap(**kw)
     assert out.poses.device == here and out.landmarks.device == here
     _, cpu = megamap.run_megamap(device="cpu", **kw)
@@ -862,3 +864,55 @@ def test_refinement_checkpoint_loads_onto_the_card(dev, tmp_path):
     for a, b in zip(restored, half):
         assert a.device == b.device and torch.equal(a, b)
     assert bool(torch.isfinite(step(restored).poses).all())
+
+
+def test_sharded_deferred_tick_never_waits_for_the_device(dev):
+    """Config 4 over 8 map shards in one process (the plain sharded scan,
+    kernel 1 once a tick for every shard's planes), known and unknown:
+    no synchronizing call, so the host runs ahead of the card (PyTorch's
+    sync debug mode raises on any)."""
+    from shermbot_navigation_tpu_torch.parallel import mesh as mesh_lib
+    N, M = 256, 8
+    cfg = EKFConfig(num_landmarks=N)
+    Q, R = bigmap.noise(device=dev)
+    wl = bigmap.make_workload(N, 16, M, device=dev)
+    mesh = mesh_lib.make_mesh(map_=8, local_shards=8, device=dev)
+    valid = torch.ones((1, M), dtype=torch.bool, device=dev)
+    ticks = {k: blocked_ekf.make_deferred_step(cfg, M, dev, known=k,
+                                               mesh=mesh)
+             for k in (True, False)}
+    states = {k: blocked_ekf.shard_state(blocked_ekf.init(cfg, 1, device=dev),
+                                         mesh) for k in ticks}
+
+    def tick(t):
+        zs, ids, tw = bigmap.measurements(wl, t)
+        for k, step in ticks.items():
+            states[k] = step(states[k], tw[None], zs[None], valid,
+                             *((ids[None],) if k else ()), Q, R)
+
+    before = tgu.fused_grid_update.launches
+    tick(0)                                   # builds and first launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 6):
+            tick(t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tgu.fused_grid_update.launches - before == 12
+    assert int(states[True].n_seen[0, 0]) == 6 * M
+
+
+def _nccl_mesh(rank):
+    from shermbot_navigation_tpu_torch.parallel import mesh as mesh_lib
+    mesh_lib.make_mesh(map_=2, local_shards=1, device="cuda:0")
+
+
+def test_nccl_with_two_ranks_on_one_card_raises(dev):
+    """NCCL cannot put two ranks on one device: ``make_mesh`` under an nccl
+    cluster whose two ranks share ``cuda:0`` raises, before any NCCL
+    collective (two ranks on one card take gloo)."""
+    from shermbot_navigation_tpu_torch.parallel import mesh as mesh_lib
+    with pytest.raises(RuntimeError, match="nccl needs a card of its own"):
+        mesh_lib.run_cluster(_nccl_mesh, 2, backend="nccl", timeout=120)

@@ -59,7 +59,7 @@ def test_run_megamap_matches_jax(n_shards):
     _, want = jmm.run_megamap(N=64, T=24, obs_per_pose=4, mesh=mesh,
                               dtype=jnp.float64, **kw)
     prob, got = tmm.run_megamap(N=64, T=24, obs_per_pose=4,
-                                n_shards=n_shards, dtype=torch.float64,
+                                mesh=n_shards, dtype=torch.float64,
                                 device="cpu", **kw)
     for k in ("poses", "landmarks"):
         np.testing.assert_allclose(getattr(got, k).numpy(),

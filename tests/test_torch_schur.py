@@ -25,6 +25,7 @@ from shermbot_navigation_tpu.models import schur as jschur
 from shermbot_navigation_tpu.parallel import mesh as mesh_lib
 from shermbot_navigation_tpu.parallel import schur_dist as jsd
 from shermbot_navigation_tpu_torch.models import schur as tschur
+from shermbot_navigation_tpu_torch.parallel import mesh as tmesh
 from shermbot_navigation_tpu_torch.parallel import schur_dist as tsd
 from shermbot_navigation_tpu_torch.utils import convert
 from test_refinement import TestSchur as _JaxSchurTests
@@ -152,7 +153,8 @@ def test_gauge_anchor_holds_exactly():
 
 def test_shard_sum_is_the_psum_over_the_shard_axis():
     x = torch.arange(24, dtype=torch.float64).view(4, 2, 3)
-    assert torch.equal(tsd.shard_sum(x), x[0] + x[1] + x[2] + x[3])
+    mesh = tmesh.make_mesh(map_=4, local_shards=4, device="cpu")
+    assert torch.equal(mesh.psum(x), x[0] + x[1] + x[2] + x[3])
 
 
 def test_sharded_gn_refuses_shapes_it_was_not_built_for():
