@@ -7,7 +7,9 @@ at B=1024 worlds with the buffered perception path beside it, configs
 entry's path) on both batched engines, with the batch sweep, config 4
 (``run_bigmap``) for 8 worlds, deferred and sequential, and config 5
 (``run_megamap``: loop closure and map-sharded Schur refinement of a
-50,000-landmark map).
+50,000-landmark map), and the last modules: the staged pipeline on two
+streams, the guarded tick, ``cli run``, the compile entry and kernel 3
+for B worlds under ``torch.func.vmap``.
 
     python3 chip_smoke.py
 
@@ -124,17 +126,17 @@ It imports nothing of JAX. Phases, one JSON line each:
    ``make`` where absent), ``n_seen`` equal to the fixture
    at every tick, poses within ``CONFIGS12_POSE_TOL``, the ATE spread
    printed; (b) the same at B=1024 through ``run_scenario_batch`` (the
-   dense engine under ``torch.func.vmap``) against the lanes engine on the
-   same noise; (c) config 2 at B=1024 on the lanes engine, the first 8
+   dense engine under ``torch.func.vmap``) against the first 1024 worlds
+   of (a)'s lanes run (no draw reaches a config-1 world); (c) config 2 at B=1024 on the lanes engine, the first 8
    worlds on ``tests/fixtures/course12_golden.json``'s draws (7 noisy, 1
    deterministic): ``n_seen`` equal to the fixture at every tick, each
    fixture world's parting tick (the first tick a pose is off by more than
    the bound; none before ``CONFIG2_EARLY``) with the smallest relative
    gate margin just before it, the deterministic world's ATE within 1e-3
    m; median-world ATE, diverged fraction and median NEES over all worlds
-   (never a pooled RMSE); then ``run_scenario_batch`` on the first 100
+   (never a pooled RMSE); then ``run_scenario_batch`` on the first 50
    ticks of the first 256 worlds against the lanes run; (d)
-   ``course12_tuned`` at B=1024: no world may diverge; (e) config 1's
+   ``course12_tuned`` at B=1024 for 300 ticks: no world may diverge; (e) config 1's
    batch sweep on the lanes engine from B=16384 by 4x past 262144 while
    world x ticks / s grows by more than 10% and a full run's outputs fit,
    the saturation point, and ``torch.profiler`` over 4 ticks of each
@@ -192,11 +194,11 @@ It imports nothing of JAX. Phases, one JSON line each:
    tick's decisions, n_seen and seen equal to the one-shard run's on the
    card (kernels 1 and 2), the final state against the two serving
    goldens at GOLD_TOL / GOLD_UNKNOWN_TOL; S = 2 and 4, and
-   ``bigmap.make_runner(batch=8, mesh=...)``, for 32 ticks within
+   ``bigmap.make_runner(batch=8, mesh=...)``, for 16 ticks within
    PROC_TOL; (c)
    ``config4_sharded_two_processes``: two processes on ``cuda:0`` (gloo,
-   the collectives staged through the host), 4 shards each: 64 known and
-   64 unknown deferred ticks and 8 sequential ones, decisions equal to
+   the collectives staged through the host), 4 shards each: 32 known and
+   32 unknown deferred ticks and 8 sequential ones, decisions equal to
    (b)'s every tick and the state within PROC_TOL of the one-process run,
    and config 5's f64 stage 2 over 2 x 2 shards within CONFIG5_F64_TOL of
    phase 19's 4-shard run; (d) ``config4_sharded_times``: ms a tick at
@@ -204,6 +206,28 @@ It imports nothing of JAX. Phases, one JSON line each:
    ms, idle share) and on the two processes (collectives, host copies
    and their share of a tick), kernel 1 on the shard fold beside its
    bound and ``torch.baddbmm``.
+21. aux -- the last modules of the port, each path with every counter
+   set to 0 just before and read just after: (a) ``aux_staged``: the
+   staged pipeline (``pipeline/staged``) of ``lidar20_full`` on two
+   streams (producer and consumer, a double-buffered packet between them)
+   against its sequential oracle, T21 ticks, kernel 4's tail launched
+   once a tick and no other kernel; ms a tick of both in turns on
+   ``lidar20_full`` and ``loop5_known``, and the streams' overlap by
+   ``torch.profiler``; (b) ``aux_guarded_tick``: the guarded deferred
+   tick (``utils/guards``) at N=2048, M=8 under the sync debug mode (no
+   host sync), bit-equal to the unguarded tick over 32 ticks, kernels 1
+   and 2 once a tick, a poisoned state named, ms a tick of both; (c)
+   ``aux_cli_run``: ``cli run`` in-process on ``loop5_known``
+   (``driver.run_scenario``, one world on the card), the config-1 ATE
+   held to the lanes engine's; (d) ``aux_entry``: the compile entry
+   (``entry.py``) under ``torch.compile`` (inductor) against eager, in a
+   process of its own started after phase 2 (inductor's compile is
+   minutes of host work; it runs niced beside the other phases and times
+   its ticks once they are done); (e) ``aux_cov_update_batched``: kernel 3 for B21=8
+   worlds at D=4224 in one launch through ``torch.func.vmap``, bit-equal
+   to 8 single launches and held to the plain version, the dense engine
+   with ``'on'`` under vmap launching once an update for all worlds, ms
+   beside the bound and ``torch.baddbmm``.
 
 Then the card line as nvidia-smi prints it, the kernels line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -430,14 +454,16 @@ PERCEPTION_POS_TOL = 1e-3
 # the buffered path's plain version (~100 ms a tick at B3) runs on every
 # 4th tick's scans, to keep the whole run near 600 s
 PLAIN_EVERY = 4
+CONFIG3_TIMING_ROUNDS = 3   # blocks of each row timed in turns
 
 # Phase 17, configs 1 and 2. Worlds: config 1 at bench.py's batch, its
 # dense engine at B=1024; config 2 and course12_tuned at half the batch
 # the JAX package reports them at (BENCH_NOTES.md: 2048), to keep the
-# whole run near 600 s with phase 20; the dense engine of config 2 on its
-# first 100 ticks.
+# whole run near 600 s with phases 20 and 21; the dense engine of config
+# 2 on its first 50 ticks, course12_tuned on its first 300.
 B1, B1_VMAPPED = 16384, 1024
-B2, B2_VMAPPED, T2_VMAPPED = 1024, 256, 100
+B2, B2_VMAPPED, T2_VMAPPED = 1024, 256, 50
+T2_TUNED = 300         # course12_tuned's ticks (of its 600), for run time
 # Poses against the JAX f32 run (and the two engines against each other):
 # two f32 implementations part by the rounding of the wheel-angle sums,
 # which XLA fuses (cmd_wheels + u * eta in one rounding) and the port
@@ -454,7 +480,7 @@ PARTING_WINDOW = 10    # ticks before a parting searched for its gate margin
 # from 16384: B=256 to 4096 (30-40 ms a tick, host-bound like 16384 and
 # 65536) are left out to keep the whole run near 600 s
 SWEEP_BATCHES = (16384, 65536, 262144)
-SWEEP_TICKS = 20       # timed ticks a sweep point, after 2 warm ticks
+SWEEP_TICKS = 10       # timed ticks a sweep point, after 2 warm ticks
 SWEEP_GROWTH = 1.10    # a 4x larger batch must gain this much to go on
 PROFILE_TICKS = 4
 # the (B, T, ...) outputs: three poses, n_seen and NEES, f32/int32
@@ -511,8 +537,8 @@ CONFIG5_SHARDS = 4
 # stage 2 over PROCS20 x CONFIG5_PROC_SHARDS shards.
 S20 = 8
 S20_SHORT = (2, 4)
-T20_SHORT = 32
-T20_PROC, T20_PROC_SEQ = 64, 8
+T20_SHORT = 16
+T20_PROC, T20_PROC_SEQ = 32, 8
 PROCS20 = 2
 CONFIG5_PROC_SHARDS = 2
 PROC20_TIMEOUT = 400
@@ -522,6 +548,39 @@ PROC20_TIMEOUT = 400
 # (a world's planes are one of more in a batched call). Each float field
 # within PROC_TOL of its scale; n_seen, seen and the decisions exactly.
 PROC_TOL = 1e-6
+
+# Phase 21, the last modules of the port. (a) The staged pipeline
+# (``pipeline/staged``) of lidar20_full on two streams against its
+# sequential oracle for T21 ticks: the same stage bodies on the same draws,
+# so n_seen equal at every tick and the poses within tests/test_staged.py's
+# bounds (true and odometry poses 1e-6, SLAM 1e-4); timed in turns on
+# lidar20_full and loop5_known for T21_TIMED ticks, the two streams'
+# overlap from torch.profiler over T21_PROFILE ticks. (b) The guarded
+# deferred tick (``utils/guards.checked_blocked_tick``) at N=2048, M=8 for
+# T21_GUARD ticks: the tripwire only reads, so the state equals the
+# unguarded tick's bit for bit. (c) ``cli run`` on loop5_known: its ATE
+# within CONFIG1_ATE_TOL of the lanes engine's f32 ATE on the card
+# (PERF.md, 0.05198974 m; the same scenario, no draws). (d)
+# The compile entry under torch.compile (inductor) against eager: inductor
+# fuses and may contract a multiply and an add into one rounding, so every
+# float leaf within ENTRY_TOL of its scale after one tick from the initial
+# state, integer leaves equal. (e) Kernel 3 for B21 worlds at D_PAD in one
+# launch under torch.func.vmap: bit-equal to B21 single launches, within
+# COV_ATOL of the plain version; the dense engine under vmap for T21_DENSE
+# ticks of M updates (one launch an update for all worlds), each world
+# against its own one-world run within DENSE_VMAP_TOL of scale (batched
+# and single products differ in summation order only).
+T21 = 24
+T21_TIMED = {"lidar20_full": 12, "loop5_known": 24}
+T21_TURNS = 2          # runs of staged and of sequential timed, in turns
+T21_PROFILE = 4
+ENTRY_TIMEOUT = 900    # s the compile entry's process may still take
+T21_GUARD = 32
+T21_DENSE = 4
+B21 = 8
+ENTRY_TOL = 1e-5
+DENSE_VMAP_TOL = 1e-5
+CONFIG1_CARD_ATE = 0.05198974   # lanes engine, f32, NVIDIA H100 (PERF.md)
 
 KERNELS = {
     "grid_update": {
@@ -561,6 +620,10 @@ KERNELS = {
     "grid_update_shards": {
         "source": f"{PKG}/csrc/grid_update.cu",
         "replaces": "shermbot_navigation_tpu/ops/pallas/grid_update.py:87"},
+    # kernel 3 launched once for B21 worlds under torch.func.vmap (phase 21)
+    "cov_update_batched": {
+        "source": f"{PKG}/csrc/cov_update.cu",
+        "replaces": "shermbot_navigation_tpu/ops/pallas/cov_update.py:70"},
 }
 # f32 operations of one cluster's fit tail, counted from csrc/circle_fit.cu:
 # a Jacobi rotation is 75 multiplies, adds and subtracts and three calls
@@ -2100,7 +2163,7 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
             "perception_buffered": buffered_block}
     times = {k: [] for k in rows}
     order = list(rows)
-    for rnd in range(5):
+    for rnd in range(CONFIG3_TIMING_ROUNDS):
         for k in (order if rnd % 2 == 0 else order[::-1]):
             times[k].append(rows[k]())
     # the first round warms allocators and libm tables: drop it
@@ -2509,7 +2572,8 @@ def phase_config1(dev):
     if cpp_err is not None and not cpp_err <= CONFIG1_ATE_TOL:
         fail(f"config 1: a world's ATE is off the C++ ATE {cpp_ate} by "
              f"{cpp_err}")
-    return scn, golden
+    return scn, golden, type(outs)(*(f[:B1_VMAPPED] for f in outs)), \
+        seconds * 1e3 / T
 
 
 def engines_agree(dense, lanes, tol):
@@ -2522,26 +2586,26 @@ def engines_agree(dense, lanes, tol):
     return bool(torch.equal(dense.n_seen, lanes.n_seen)), err, err <= tol
 
 
-def phase_config1_vmapped(dev, scn, golden):
+def phase_config1_vmapped(dev, scn, golden, lanes, lanes_ms):
     """Config 1 through ``run_scenario_batch`` (the dense engine under
-    ``torch.func.vmap``) against the lanes engine on the same noise."""
+    ``torch.func.vmap``) against the first B1_VMAPPED worlds of phase
+    17a's lanes run: config 1 scales every draw by zero, so a world's run
+    does not depend on its draws (and each lanes world is the fixture's
+    world)."""
     T = golden["T"]
     noise = noise_sequence(scn, dev, B1_VMAPPED, T, seed=22)
     reset_counters()
     dense, s_dense = timed_run(driver.run_scenario_batch, scn, noise,
                                B1_VMAPPED, steps=T, device=dev)
     launches = kernel_launches()
-    lanes, s_lanes = timed_run(driver.run_scenario_batch_lanes, scn, noise,
-                               B1_VMAPPED, steps=T, device=dev)
     del noise
     seen_eq, err, ok = engines_agree(dense, lanes, CONFIGS12_POSE_TOL)
     ate = bench.world_ate(dense)
     ate_err = float((ate - golden["ate"][0]).abs().max())
     emit(phase="configs12_config1_vmapped", scenario=scn.name, B=B1_VMAPPED,
          T=T, ms_per_tick={"vmapped": s_dense * 1e3 / T,
-                           "lanes": s_lanes * 1e3 / T},
-         world_ticks_per_s={"vmapped": B1_VMAPPED * T / s_dense,
-                            "lanes": B1_VMAPPED * T / s_lanes},
+                           f"lanes_B{B1}": lanes_ms},
+         world_ticks_per_s={"vmapped": B1_VMAPPED * T / s_dense},
          finite=all_finite(dense), launches=launches,
          n_seen_equal_every_tick=seen_eq, pose_max_abs_diff=err,
          pose_tol=CONFIGS12_POSE_TOL, ate_max_abs_err_vs_golden=ate_err)
@@ -2676,16 +2740,17 @@ def phase_config2_vmapped(dev, scn, noise, lanes):
 
 def phase_course12_tuned(dev):
     """``course12_tuned`` (nearest-neighbour gating, wrapped innovations,
-    multiplicative slip) at B2 worlds: no world may diverge."""
+    multiplicative slip) at B2 worlds for T2_TUNED ticks: no world may
+    diverge."""
     scn = get_scenario("course12_tuned")
     gen = torch.Generator(device=dev)
     gen.manual_seed(24)
     outs, seconds = timed_run(driver.run_scenario_batch_lanes, scn, gen, B2,
-                              device=dev)
+                              steps=T2_TUNED, device=dev)
     ate = bench.world_ate(outs)
     diverged = int((ate > 1.0).sum())
-    emit(phase="configs12_course12_tuned", B=B2, T=scn.steps,
-         ms_per_tick=seconds * 1e3 / scn.steps, finite=all_finite(outs),
+    emit(phase="configs12_course12_tuned", B=B2, T=T2_TUNED,
+         ms_per_tick=seconds * 1e3 / T2_TUNED, finite=all_finite(outs),
          median_ate=float(ate.median()),
          p99_ate=float(torch.quantile(ate, 0.99)), max_ate=float(ate.max()),
          diverged=diverged, median_nees=float(outs.nees.median()))
@@ -2761,8 +2826,9 @@ def phase_sweep(dev, scn1, scn2):
 
 def phase_configs12(dev):
     """Phase 17: configs 1 and 2, ``course12_tuned`` and the sweep."""
-    scn1, golden1 = phase_config1(dev)
-    phase_config1_vmapped(dev, scn1, golden1)
+    scn1, golden1, lanes1, lanes1_ms = phase_config1(dev)
+    phase_config1_vmapped(dev, scn1, golden1, lanes1, lanes1_ms)
+    del lanes1
     scn2, noise, outs2 = phase_config2(dev)
     phase_config2_vmapped(dev, scn2, noise, outs2)
     del noise, outs2
@@ -3761,6 +3827,402 @@ def phase_config4_sharded(dev, cfg, st4, wl4, config5_f64):
     return launches, plane["max_abs_err"], kernel
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the staged pipeline, the guards, the CLI, the compile entry and
+# kernel 3 under vmap
+# ---------------------------------------------------------------------------
+
+def seeded_gen(dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def merged(spans):
+    """The union of (start, end) spans as sorted disjoint spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def stream_overlap(prof) -> dict:
+    """Device ms of a profile by stream, from its Chrome trace's device
+    events (kernels, copies, fills: ``ts``, ``dur``, ``args.stream``): each
+    stream's busy ms, the busy ms of the card (their union) and the ms in
+    which two streams ran at once."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and "dur" in e:
+            spans.setdefault(e.get("args", {}).get("stream"), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    per = {s: merged(v) for s, v in spans.items()}
+    length = lambda iv: sum(b - a for a, b in iv) / 1e3
+    busy = length(merged([x for v in per.values() for x in v]))
+    return {"streams": len(per), "device_busy_ms": busy,
+            "per_stream_busy_ms": {str(s): length(v) for s, v in per.items()},
+            "overlap_ms": sum(length(v) for v in per.values()) - busy,
+            "device_events": sum(len(v) for v in spans.values())}
+
+
+def staged_ms(run, dev, T, seed):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(seeded_gen(dev, seed), T)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / T, out
+
+
+def phase_staged(dev):
+    """(a) The staged pipeline on two streams against its oracle; its
+    timing in turns and the streams' overlap."""
+    from torch.profiler import ProfilerActivity, profile
+    from shermbot_navigation_tpu_torch.pipeline import staged
+    scn = get_scenario("lidar20_full")
+    run = staged.make_staged_rollout(scn)
+    oracle = staged.make_staged_reference(scn)
+    run(seeded_gen(dev, 0), 2)                  # first launches
+    torch.cuda.synchronize()
+    reset_counters()
+    got = run(seeded_gen(dev, 3), T21)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    ref = oracle(seeded_gen(dev, 3), T21)
+    n_seen_equal = bool(torch.equal(got.n_seen, ref.n_seen))
+    errs = {f: float((getattr(got, f) - getattr(ref, f)).abs().max())
+            for f in ("true_pose", "odom_pose", "slam_pose")}
+    tols = {"true_pose": 1e-6, "odom_pose": 1e-6, "slam_pose": 1e-4}
+    ok = n_seen_equal and all(errs[f] <= tols[f] for f in tols)
+    timing = {}
+    for name in ("lidar20_full", "loop5_known"):
+        sc = get_scenario(name)
+        rows = {"staged": staged.make_staged_rollout(sc),
+                "sequential": staged.make_staged_reference(sc)}
+        times = {k: [] for k in rows}
+        for k in ("staged", "sequential", "sequential", "staged") * \
+                ((T21_TURNS + 1) // 2):
+            if len(times[k]) < T21_TURNS:
+                times[k].append(staged_ms(rows[k], dev, T21_TIMED[name],
+                                          5)[0])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rows["staged"](seeded_gen(dev, 5), T21_PROFILE)
+            torch.cuda.synchronize()
+        timing[name] = {"ms_per_tick": {k: statistics.median(v)
+                                        for k, v in times.items()},
+                        "ms_per_tick_runs": times,
+                        "staged_profile": stream_overlap(prof)}
+    emit(phase="aux_staged", scenario="lidar20_full", T=T21,
+         launches=launches, n_seen_equal=n_seen_equal, max_abs_err=errs,
+         tol=tols, n_seen_last=int(got.n_seen[-1]), timing=timing,
+         timed_ticks=T21_TIMED, profiled_ticks=T21_PROFILE,
+         note="staged: producer on stream 0, consumer on stream 1, the "
+              "packet double-buffered with events; sequential: the oracle "
+              "on one stream; host clock around synchronized runs, in "
+              "turns staged, sequential, sequential, staged, ...")
+    if not ok:
+        fail(f"staged rollout differs from its oracle: {errs}, n_seen "
+             f"equal {n_seen_equal}")
+    want = dict.fromkeys(launches, 0)
+    want["circle_fit_tail"] = T21
+    if launches != want:
+        fail(f"staged lidar20_full launched {launches}, want {want}")
+    return launches
+
+
+def phase_guarded(dev, cfg):
+    """(b) The guarded deferred tick against the unguarded one: bit for
+    bit over T21_GUARD ticks, no host sync, kernels 1 and 2 once a tick,
+    a poisoned state named; ms a tick of both in turns."""
+    from shermbot_navigation_tpu_torch.utils import guards
+    Q, R = bigmap.noise(device=dev)
+    wl = bigmap.make_workload(N, T21_GUARD, M, device=dev)
+    valid = torch.ones((1, M), dtype=torch.bool, device=dev)
+    step = blocked_ekf.make_deferred_step(cfg, M, dev)
+    tick = guards.checked_blocked_tick(step)
+
+    def args(t):
+        zs, ids, tw = bigmap.measurements(wl, t % T21_GUARD)
+        return tw[None], zs[None], valid, ids[None], Q, R
+
+    warm = blocked_ekf.init(cfg, 1, device=dev)
+    tick(clone_state(warm), *args(0))           # first launches
+    torch.cuda.synchronize()
+    plain, guarded = clone_state(warm), clone_state(warm)
+    reset_counters()
+    errs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(T21_GUARD):
+            err, guarded = tick(guarded, *args(t))
+            errs.append(err)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    for err in errs:
+        err.throw()
+    for t in range(T21_GUARD):
+        plain = step(plain, *args(t))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(getattr(guarded, f), getattr(plain, f))
+                for f in blocked_ekf.BlockedState._fields)
+    bad = clone_state(plain)
+    bad.mean_r[0, 0] = float("nan")
+    named = tick(bad, *args(0))[0].get()
+    # ms a tick in turns: host clock around synchronized blocks of 16
+    states = {"guarded": clone_state(plain), "unguarded": clone_state(plain)}
+    runs = {"guarded": lambda s, t: tick(s, *args(t))[1],
+            "unguarded": lambda s, t: step(s, *args(t))}
+    times = {k: [] for k in runs}
+    for k in ("guarded", "unguarded", "unguarded", "guarded") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(16):
+            states[k] = runs[k](states[k], t)
+        torch.cuda.synchronize()
+        times[k].append((time.perf_counter() - t0) * 1e3 / 16)
+    emit(phase="aux_guarded_tick", N=N, M=M, T=T21_GUARD, launches=launches,
+         equal_to_unguarded=equal, host_syncs_a_tick=0, poisoned=named,
+         n_seen=int(guarded.n_seen[0]),
+         ms_per_tick={k: statistics.median(v) for k, v in times.items()},
+         ms_per_tick_runs=times,
+         note="the guarded ticks ran under torch.cuda.set_sync_debug_mode"
+              "('error'), which raises on any synchronizing call")
+    if not equal:
+        fail("the guarded tick differs from the unguarded one")
+    if named != "non-finite values in blocked.mean_r":
+        fail(f"a poisoned state was named {named!r}")
+    if launches["grid_update"] != T21_GUARD or \
+            launches["seq_scan"] != T21_GUARD:
+        fail(f"guarded ticks launched {launches}, want {T21_GUARD} each")
+    return launches
+
+
+def phase_cli_run(dev):
+    """(c) ``cli run`` on the card, in-process, on loop5_known:
+    ``driver.run_scenario`` on the card."""
+    import contextlib
+    import io
+    from shermbot_navigation_tpu_torch.pipeline import cli
+    rows = {}
+    for name in ("loop5_known",):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["run", "--scenario", name])
+        seconds = time.perf_counter() - t0
+        rows[name] = dict(json.loads(buf.getvalue().strip().splitlines()[-1]),
+                          seconds=seconds)
+    loop5 = rows["loop5_known"]
+    ate_err = abs(loop5["ate_slam_m"] - CONFIG1_CARD_ATE)
+    emit(phase="aux_cli_run", rows=rows, loop5_ate_vs_lanes=ate_err,
+         lanes_ate=CONFIG1_CARD_ATE, tol=CONFIG1_ATE_TOL,
+         note="python -m shermbot_navigation_tpu_torch.pipeline.cli run "
+              "--scenario <name>: one world on the dense engine, f32, on "
+              "the card (no --device); seconds include the whole run")
+    finite = all(math.isfinite(v) for r in rows.values() for v in r.values()
+                 if isinstance(v, float))
+    if not finite or loop5["n_seen"] != 5 or ate_err > CONFIG1_ATE_TOL:
+        fail(f"cli run: {rows}")
+
+
+def entry_check() -> None:
+    """Phase 21 (d), run in a process of its own (``entry_process``): the
+    compile entry under torch.compile (inductor) against the eager tick.
+    Inductor's compile is host work of minutes, so it runs beside the
+    other phases; then the process waits for a line on its standard input
+    (the parent's signal that the card is free) before it times the two
+    ticks, and prints one JSON line."""
+    from shermbot_navigation_tpu_torch import entry
+    fn, args = entry.entry()
+    eager = fn(*args)
+    compiled_fn = torch.compile(fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled = compiled_fn(*args)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    errs = {}
+
+    def walk(a, b, name):
+        if isinstance(a, tuple):
+            for k, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+                walk(x, y, f"{name}.{k}")
+        elif a.is_floating_point():
+            errs[name] = scale_err(a, b, tol=ENTRY_TOL)
+        else:
+            errs[name] = (0.0, True) if torch.equal(a, b) else (1.0, False)
+
+    walk(compiled, eager, "out")
+    print("compiled", flush=True)
+    sys.stdin.readline()
+    ms = {"eager": cuda_ms(lambda: fn(*args), 10, 3),
+          "compiled": cuda_ms(lambda: compiled_fn(*args), 10, 3)}
+    print(json.dumps({"compile_s": compile_s,
+                      "max_err_of_scale": {k: v[0] for k, v in errs.items()},
+                      "within_tol": all(ok for _, ok in errs.values()),
+                      "ms_per_tick": ms}), flush=True)
+
+
+def entry_process():
+    """Start :func:`entry_check` in its own process (niced, two compile
+    workers, inductor's and Triton's caches in the gitignored build
+    directory), its errors into a temporary file."""
+    import os
+    import tempfile
+    build = ROOT / PKG / "_build"
+    env = dict(os.environ, TORCHINDUCTOR_CACHE_DIR=str(build / "inductor"),
+               TRITON_CACHE_DIR=str(build / "triton"),
+               TORCHINDUCTOR_COMPILE_THREADS="2")
+    errors = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.entry_check()"],
+        cwd=ROOT, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=errors, text=True, preexec_fn=lambda: os.nice(10))
+    proc.errors = errors
+    return proc
+
+
+def phase_entry(proc):
+    """(d) The compile entry's result from its process (started at the
+    beginning of the run): the card is free now, so it times the ticks."""
+    out, _ = proc.communicate("go\n", timeout=ENTRY_TIMEOUT)
+    proc.errors.seek(0)
+    if proc.returncode != 0:
+        fail(f"compile entry failed ({proc.returncode}):\n"
+             f"{proc.errors.read()[-4000:]}")
+    row = json.loads(out.strip().splitlines()[-1])
+    emit(phase="aux_entry", backend="inductor", tol=ENTRY_TOL, **row,
+         note="entry.entry(): one driver.slam_tick on stock6, f32, compiled "
+              "in a process of its own that ran beside phases 3 on (niced, "
+              "2 compile workers); error of a float leaf is max|compiled - "
+              "eager|, held to tol * max(1, max|eager|); ms: CUDA events "
+              "over 10 ticks, taken once the other phases were done")
+    if not row["within_tol"]:
+        fail(f"compiled entry differs from eager: {row['max_err_of_scale']}")
+
+
+def dense_vmap_inputs(cfg, dev, lms, B):
+    """B worlds of the seeded dense state and each world's schedule (world
+    b measures tick t + 7 b of the benchmark schedule)."""
+    st, _ = seeded_dense(cfg, dev)
+    zs, ids = dense_schedule(lms, 512, dev)
+    worlds = ekf_slam.EKFState(*(f.expand(B, *f.shape).clone() for f in st))
+    shift = 7 * torch.arange(B, device=dev)
+    sched = [(zs[(t + shift) % 512], ids[(t + shift) % 512])
+             for t in range(T21_DENSE)]
+    return st, worlds, sched
+
+
+def phase_cov_batched(dev):
+    """(e) Kernel 3 for B21 worlds in one launch under torch.func.vmap:
+    against B21 single launches and the plain version; the dense engine
+    under vmap (the main path: one launch an update for all worlds);
+    its timing beside the bound and torch.baddbmm."""
+    B, D = B21, D_PAD
+    rng = np.random.default_rng(21)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                    ).to(dev)
+    psi = torch.tensor([[2.0, -0.3], [-0.3, 1.5]], device=dev)
+    ops = (f(B, D, D), f(B, D, 2), psi * (1 + 0.1 * f(B, 1, 1).abs()),
+           f(B, 2), f(B, D))
+    apply = torch.arange(B, device=dev) % 3 != 1
+    before = cu.fused_kalman_update.launches
+    got = torch.func.vmap(cu.fused_kalman_update)(*ops, apply)
+    torch.cuda.synchronize()
+    op_launches = cu.fused_kalman_update.launches - before
+    singles = all(
+        all(torch.equal(g[b], w) for g, w in zip(
+            got, cu.fused_kalman_update(*(x[b] for x in ops), apply[b])))
+        for b in range(B))
+    want = cu.reference_kalman_update(*ops, apply=apply)
+    err = max(close_err(g, w, COV_ATOL)[0] for g, w in zip(got, want))
+    off_exact = bool(torch.equal(got[0][~apply], ops[0][~apply]))
+    del want
+
+    cfg_on = dense_configs()[0]
+    _, lms = seeded_dense(cfg_on, "cpu")
+    one, worlds, sched = dense_vmap_inputs(cfg_on, dev, lms, B)
+    Q, R = dense_noise(dev)
+    tw = torch.zeros(3, device=dev)
+    valid = torch.ones(M, dtype=torch.bool, device=dev)
+    vstep = torch.func.vmap(lambda s, z, i: ekf_slam.known_association_step(
+        cfg_on, s, tw, z, valid, i, Q, R))
+    vstep(ekf_slam.EKFState(*(x[:2].clone() for x in worlds)),
+          *(x[:2] for x in sched[0]))          # first launches
+    torch.cuda.synchronize()
+    reset_counters()
+    for z, i in sched:
+        worlds = vstep(worlds, z, i)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    engine_err = 0.0
+    engine_ok = True
+    for b in (0, B - 1):
+        st = one
+        for z, i in sched:
+            st = ekf_slam.known_association_step(cfg_on, st, tw, z[b],
+                                                 valid, i[b], Q, R)
+        for k in ("mean", "cov"):
+            e, ok_k = scale_err(getattr(worlds, k)[b], getattr(st, k),
+                                tol=DENSE_VMAP_TOL)
+            engine_err, engine_ok = max(engine_err, e), engine_ok and ok_k
+        engine_ok = engine_ok and bool(torch.equal(worlds.seen[b], st.seen))
+        del st
+    del worlds
+
+    call = lambda: cu.fused_kalman_update(*ops, apply=apply, use_kernel=True)
+    K = ops[1] @ torch.linalg.inv(ops[2])
+    shtT = ops[1].transpose(1, 2).contiguous()
+    row = {"ms": cuda_ms(call, 20),
+           "vmap_ms": cuda_ms(lambda: torch.func.vmap(cu.fused_kalman_update)(
+               *ops, apply), 20),
+           "device_ms": profiled_device_ms(call, "cov_update", 10),
+           "plain_ms": cuda_ms(lambda: cu.reference_kalman_update(
+               *ops, apply=apply), 5),
+           "library_ms": cuda_ms(lambda: torch.baddbmm(ops[0], K, shtT,
+                                                       alpha=-1.0), 20),
+           **bound_of(B * 4 * (2 * D * D + 2 * D + 2 * D + 6) + B,
+                      B * 4 * D * D)}
+    emit(phase="aux_cov_update_batched", B=B, D=D, op_launches=op_launches,
+         bit_equal_to_single_launches=singles, max_abs_err=err,
+         atol=COV_ATOL, flag_off_exact=off_exact, engine_ticks=T21_DENSE,
+         engine_launches=launches, engine_max_err_of_scale=engine_err,
+         engine_tol=DENSE_VMAP_TOL, **row,
+         note="ms: CUDA events over the (B, D, D) call (vmap_ms: the same "
+              "through torch.func.vmap of the one-world wrapper); "
+              "library: torch.baddbmm for the B rank-2 downdates of cov")
+    if op_launches != 1 or not singles or err > COV_ATOL or not off_exact:
+        fail(f"batched cov_update: launches {op_launches}, single launches "
+             f"equal {singles}, err {err}, flag off exact {off_exact}")
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches["cov_update"] = T21_DENSE * M
+    if launches != want_launches or not engine_ok:
+        fail(f"vmapped dense engine: launches {launches}, worlds against "
+             f"their own runs {engine_err}")
+    return launches["cov_update"], err, row
+
+
+def phase_aux(dev, cfg, entry_proc):
+    """Phase 21: (a)-(e) above. Returns kernel 3's batched row."""
+    phase_staged(dev)
+    phase_guarded(dev, cfg)
+    phase_cli_run(dev)
+    phase_entry(entry_proc)
+    return phase_cov_batched(dev)
+
+
 def ptxas_resources(text: str):
     """Registers, shared memory and spill bytes of every kernel, from
     ``nvcc -Xptxas -v``'s output."""
@@ -3813,7 +4275,16 @@ def main() -> int:
     built = _build.build()
     emit(phase="build", seconds=built["seconds"], libraries=built["paths"],
          kernels=ptxas_resources(built["ptxas"]))
+    entry_proc = entry_process()
+    try:
+        return run_phases(dev, card, entry_proc)
+    finally:
+        if entry_proc.poll() is None:
+            entry_proc.kill()
+            entry_proc.wait()
 
+
+def run_phases(dev, card, entry_proc) -> int:
     cfg = EKFConfig(num_landmarks=N)
     grid_ops, grid_err = phase_grid(dev)
     scan_args = scan_inputs(dev, cfg)
@@ -3856,6 +4327,8 @@ def main() -> int:
     s_launches, s_err, s_row = phase_config4_sharded(dev, cfg, st4, wl4,
                                                      config5_f64)
     del st4, wl4
+    torch.cuda.empty_cache()
+    vb_launches, vb_err, vb_row = phase_aux(dev, cfg, entry_proc)
 
     launches = dict(launches, seq_scan_unknown=unk_launches["seq_scan"],
                     cov_update=dense_launches, circle_moments=cm_launches,
@@ -3889,6 +4362,13 @@ def main() -> int:
                   f"known): one launch a tick for every shard's "
                   f"(2, 2, N/{S20}, N) planes; the (S B) = {S20 * B4} plane "
                   f"sets of phase 20 (a) timed")
+    key = "cov_update_batched"
+    launches[key], errs[key] = vb_launches, vb_err
+    per_call[key] = bounds[key] = vb_row
+    lib[key] = vb_row["library_ms"]
+    paths[key] = (f"the dense engine ('on', D={D_PAD}) under "
+                  f"torch.func.vmap for {B21} worlds: one launch an update "
+                  f"({T21_DENSE} ticks of {M})")
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"], launches=launches[k],
                     max_abs_err=errs[k], ms=per_call[k]["ms"],

@@ -22,6 +22,11 @@
 // rows and mean entries unchanged, which is the exact select
 // where(apply, updated, old) of the EKF tick, with no extra pass.
 // No cuBLAS: the product is the body of the TPU kernel.
+//
+// B worlds in one launch (the dense engine under torch.func.vmap, where
+// JAX batches its pallas_call): grid axis y is the world, every operand
+// and the flag are strided by it, and each world's blocks do exactly the
+// one-world arithmetic, so a world gets the bits of its own launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,7 +45,15 @@ cov_update_kernel(const float* __restrict__ cov,
                   const uint8_t* __restrict__ apply,
                   float* __restrict__ cov_o,
                   float* __restrict__ mean_o, int d) {
-  const bool on = apply == nullptr || apply[0] != 0;
+  const size_t w = blockIdx.y;
+  cov += w * d * d;
+  cov_o += w * d * d;
+  sht += w * 2 * d;
+  psi_inv += w * 4;
+  dz += w * 2;
+  mean += w * d;
+  mean_o += w * d;
+  const bool on = apply == nullptr || apply[w] != 0;
   const int n4 = d / 4;
   const float4* sh4 = reinterpret_cast<const float4*>(sht);
   const float i00 = psi_inv[0], i01 = psi_inv[1];
@@ -78,13 +91,17 @@ cov_update_kernel(const float* __restrict__ cov,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// `batch` worlds of contiguous (batch, d, d) covariances, (batch, d, 2)
+// SHt, (batch, 2, 2) psi_inv, (batch, 2) dz, (batch, d) means and
+// (batch,) flags. Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int cov_update(const void* cov, const void* sht,
                           const void* psi_inv, const void* dz,
                           const void* mean, const void* apply, void* cov_o,
-                          void* mean_o, int d, void* stream) {
-  if (d <= 0 || d % 128 != 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (d + kRows - 1) / kRows;
+                          void* mean_o, int d, int batch, void* stream) {
+  if (d <= 0 || d % 128 != 0 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 blocks((d + kRows - 1) / kRows, batch);
   cov_update_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)cov, (const float*)sht, (const float*)psi_inv,
       (const float*)dz, (const float*)mean, (const uint8_t*)apply,

@@ -46,7 +46,7 @@ SIGNATURES = {
                  [_P] * 24 + [_I] * 6 + [_F] * 2 + [_I] * 5 + [_P] * 2),
     "seq_scan_max_clusters": ("seq_scan", [_I] * 6),
     "seq_scan_probe": ("seq_scan", [_I] * 4 + [_P, _I, _P]),
-    "cov_update": ("cov_update", [_P] * 8 + [_I] + [_P]),
+    "cov_update": ("cov_update", [_P] * 8 + [_I] * 2 + [_P]),
     "circle_moments": ("circle_fit", [_P] * 5 + [_I] * 2 + [_P]),
     "circle_fit": ("circle_fit", [_P] * 9 + [_I] * 2 + [_P]),
     "circle_fit_tail": ("circle_fit", [_P, _I, _I] + [_P] * 8 + [_I, _P]),

@@ -75,10 +75,18 @@ class BlockedState(NamedTuple):
     seen: torch.Tensor     # (B, N) bool
 
 
+# The JAX package's ``state_sharding`` specs: for each global dim of each
+# field, the mesh axis that splits it (worlds over 'data', landmark rows
+# over 'map'; None: whole). Sharded checkpoints index shards by it.
+STATE_SHARDING = BlockedState(
+    mean_r=("data", None), mean_m=("data", "map", None),
+    cov_rr=("data", None, None), cov_rm=("data", None, "map", None),
+    cov_mm=("data", None, None, "map", None), diag4=("data", None, "map"),
+    n_seen=("data",), seen=("data", "map"))
 # the landmark axis each field splits over map shards (the grid's rows)
-SHARDED_AXIS = {"mean_m": -2, "cov_rm": -2, "cov_mm": -2, "diag4": -1,
-                "seen": -1}
-REPLICATED = ("mean_r", "cov_rr", "n_seen")
+SHARDED_AXIS = {k: s.index("map") - len(s)
+                for k, s in STATE_SHARDING._asdict().items() if "map" in s}
+REPLICATED = tuple(k for k in BlockedState._fields if k not in SHARDED_AXIS)
 
 
 def init(config: EKFConfig, batch: int, robot_pose=None,

@@ -13,7 +13,9 @@ file's fails loudly. :func:`load` puts every leaf on its template leaf's
 device. With map shards over several processes (``parallel/mesh.py``),
 :func:`save_sharded` has every process write its own shards to
 ``<path>.proc<k>.npz`` and :func:`load_sharded` read them back on the
-same layout, the JAX package's failure-recovery contract.
+same layout, the JAX package's failure-recovery contract, in its file
+layout (one array a shard, indexed by its global position), so a sharded
+file of either package loads into the other on the same layout.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..parallel.blocked_ekf import STATE_SHARDING
 
 __all__ = ["save", "load", "save_sharded", "load_sharded"]
 
@@ -112,56 +116,106 @@ def load(path: str, like: Any):
 
 # ---------------------------------------------------------------------------
 # Map shards across processes: each process writes and reads its own file
+# in the JAX package's layout
 # ---------------------------------------------------------------------------
 
 def _proc_file(path: str, process_index: int) -> str:
     return f"{path}.proc{process_index}.npz"
 
 
-def _layout(tree: Any, mesh) -> dict:
-    """The shard layout a sharded tree is saved with (the JAX
-    ``save_sharded``'s metadata): each leaf's global shard indices, and
-    the process's place."""
-    n = len(_flatten(tree))
-    return {"shard_indices": [mesh.shard_ids().tolist()] * n,
-            "shards": mesh.shards, "local_shards": mesh.local_shards,
-            "process_index": mesh.process_index,
-            "process_count": mesh.process_count}
+def _shard_indices(flat, mesh) -> list:
+    """For each leaf of a sharded ``BlockedState``, the JAX global index
+    ``[[start, stop], ...]`` of each of this process's local shards (the
+    leaf's leading axis): along ``'map'`` the shard's rows, along
+    ``'data'`` the map group's worlds, elsewhere the whole dim."""
+    spec_flat = [s for _, s in _flatten(STATE_SHARDING)]
+    if len(spec_flat) != len(flat):
+        raise ValueError(f"a sharded checkpoint holds a BlockedState's "
+                         f"{len(spec_flat)} leaves, not {len(flat)}")
+    group = mesh.process_index // mesh.procs
+    shard_ids = [mesh.rank * mesh.local_shards + l
+                 for l in range(mesh.local_shards)]
+    out = []
+    for (name, x), spec in zip(flat, spec_flat):
+        shape = tuple(x.shape[1:])
+        if x.shape[:1] != (mesh.local_shards,) or len(spec) != len(shape):
+            raise ValueError(
+                f"leaf {'/'.join(name)} of shape {tuple(x.shape)} does not "
+                f"lead with the {mesh.local_shards} local shards of a "
+                f"{len(spec)}-dim field")
+        block = [{None: 0, "data": group, "map": s} for s in shard_ids]
+        out.append([[[k[a] * n, (k[a] + 1) * n] for a, n in zip(spec, shape)]
+                    for k in block])
+    return out
 
 
 def save_sharded(path: str, tree: Any, mesh, step: int | None = None
                  ) -> None:
     """Write this process's map shards of ``tree`` (every leaf leading with
     ``mesh``'s local-shard axis, as ``blocked_ekf.shard_state`` gives) to
-    ``<path>.proc<k>.npz``, k its process index, with the global indices of
-    its shards and the process count. Every process calls it."""
-    for name, x in _flatten(tree):
-        if tuple(x.shape[:1]) != (mesh.local_shards,):
-            raise ValueError(f"leaf {'/'.join(name)} of shape "
-                             f"{tuple(x.shape)} does not lead with the "
-                             f"{mesh.local_shards} local shards")
-    _write(_proc_file(path, mesh.process_index), tree, step,
-           **_layout(tree, mesh))
+    ``<path>.proc<k>.npz``, k its process index, as the JAX
+    ``save_sharded`` writes its addressable shards: local shard j of leaf
+    i is ``leaf_{i}_shard_{j}``, and ``shard_indices[i][j]`` its JAX
+    global index, from the mesh axis of each global dim
+    (``blocked_ekf.STATE_SHARDING``, the JAX ``state_sharding``). Every
+    process calls it."""
+    flat = _flatten(tree)
+    indices = _shard_indices(flat, mesh)
+    arrays = {f"leaf_{i}_shard_{j}": _numpy(x[j])
+              for i, (_, x) in enumerate(flat) for j in range(x.shape[0])}
+    # shards and local_shards: the port's own keys, which the JAX reader
+    # ignores; they let a changed layout be refused on every process
+    meta = {"names": ["/".join(p) for p, _ in flat], "num_leaves": len(flat),
+            "shard_indices": indices, "process_index": mesh.process_index,
+            "process_count": mesh.process_count, "shards": mesh.shards,
+            "local_shards": mesh.local_shards}
+    if step is not None:
+        meta["step"] = int(step)
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                       dtype=np.uint8)
+    np.savez(_proc_file(path, mesh.process_index), **arrays)
 
 
 def load_sharded(path: str, like: Any, mesh):
-    """Restore :func:`save_sharded`'s file of this process into the
-    structure of ``like`` (the process's sharded template). Each process
-    reads only its own file; a changed process count or shard layout
+    """Restore this process's shards, written by :func:`save_sharded` of
+    either package, into the structure of ``like`` (the process's sharded
+    template). Each local shard is found by its JAX global index, as the
+    JAX ``load_sharded`` finds it; a changed process count or shard layout
     raises. Returns ``(tree, step)``."""
-    want = _layout(like, mesh)
-
-    def check(meta):
-        if meta.get("process_count") != want["process_count"]:
+    flat = _flatten(like)
+    names = ["/".join(p) for p, _ in flat]
+    indices = _shard_indices(flat, mesh)
+    with np.load(_proc_file(path, mesh.process_index)) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        if names != meta["names"]:
             raise ValueError(
-                f"checkpoint written by {meta.get('process_count')} "
-                f"processes, restoring with {want['process_count']}: the "
-                f"layout must match")
-        for k in ("shards", "local_shards", "shard_indices"):
-            if meta.get(k) != want[k]:
+                f"checkpoint structure mismatch:\n saved: {meta['names']}\n "
+                f"template: {names}")
+        if meta["process_count"] != mesh.process_count:
+            raise ValueError(
+                f"checkpoint written by {meta['process_count']} processes, "
+                f"restoring with {mesh.process_count} — mesh must match")
+        for k in ("shards", "local_shards"):
+            if k in meta and meta[k] != getattr(mesh, k):
                 raise ValueError(
                     f"map shard layout changed since the save: {k} "
-                    f"{meta.get(k)} in the file, {want[k]} here")
-
-    tree, meta = _read(_proc_file(path, mesh.process_index), like, check)
-    return tree, meta.get("step")
+                    f"{meta[k]} in the file, {getattr(mesh, k)} here")
+        leaves = []
+        for i, (name, (_, tmpl)) in enumerate(zip(names, flat)):
+            lookup = {tuple(map(tuple, idx)): f"leaf_{i}_shard_{j}"
+                      for j, idx in enumerate(meta["shard_indices"][i])}
+            parts = []
+            for idx in indices[i]:
+                key = tuple(map(tuple, idx))
+                if key not in lookup:
+                    raise ValueError(
+                        f"leaf {name}: shard {key} not in this process's "
+                        f"checkpoint file — mesh layout changed since save")
+                parts.append(torch.from_numpy(data[lookup[key]]))
+            arr = torch.stack(parts)
+            if arr.shape != tmpl.shape or arr.dtype != tmpl.dtype:
+                raise ValueError(
+                    f"leaf {name}: saved {arr.dtype} {tuple(arr.shape)} != "
+                    f"template {tmpl.dtype} {tuple(tmpl.shape)}")
+            leaves.append(arr.to(tmpl.device))
+    return _rebuild(like, iter(leaves)), meta.get("step")

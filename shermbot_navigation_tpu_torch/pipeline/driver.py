@@ -173,7 +173,7 @@ def slam_tick(scn: ScenarioConfig, params: tw.WorldParams, Q, R,
     return PipelineState(world=sense.world, odom=sense.odom, filt=filt), out
 
 
-class _NoiseSource:
+class NoiseSource:
     """A run's noise, tick by tick: drawn from a generator, or read from a
     precomputed sequence (fields with a leading T)."""
 
@@ -193,7 +193,7 @@ class _NoiseSource:
         return self._draw(t)
 
 
-def _alloc_outputs(lead, T, dtype, device) -> TickOutput:
+def alloc_outputs(lead, T, dtype, device) -> TickOutput:
     f = lambda *s: torch.empty((*lead, T, *s), dtype=dtype, device=device)
     return TickOutput(true_pose=f(3), odom_pose=f(3), slam_pose=f(3),
                       n_seen=torch.empty((*lead, T), dtype=torch.int32,
@@ -202,35 +202,40 @@ def _alloc_outputs(lead, T, dtype, device) -> TickOutput:
 
 
 def rollout(scn: ScenarioConfig, params: tw.WorldParams, Q, R,
-            state: PipelineState, noise, steps=None):
+            state: PipelineState, noise, steps=None, on_tick=None):
     """Run ``slam_tick`` over the scenario's command schedule. ``noise`` is
     a ``torch.Generator`` on the state's device or a :class:`TickNoise`
-    sequence. Returns (final PipelineState, stacked TickOutput (T, ...))."""
+    sequence; ``on_tick(state, out)`` (optional) sees each tick's result.
+    Returns (final PipelineState, stacked TickOutput (T, ...))."""
     T = scn.steps if steps is None else steps
     dtype = state.odom.pose.dtype
     dev = state.odom.pose.device
     cmds = command_twist(scn, T, dtype, dev)
-    src = _NoiseSource(scn, noise, (), dtype, dev)
-    outs = _alloc_outputs((), T, dtype, dev)
+    src = NoiseSource(scn, noise, (), dtype, dev)
+    outs = alloc_outputs((), T, dtype, dev)
     for t in range(T):
         state, out = slam_tick(scn, params, Q, R, state, cmds[t],
                                src.tick(t))
+        if on_tick is not None:
+            on_tick(state, out)
         for dst, val in zip(outs, out):
             dst[t] = val
     return state, outs
 
 
 def run_scenario(scn: ScenarioConfig, noise, dtype=torch.float32,
-                 device=None, steps=None) -> TickOutput:
+                 device=None, steps=None, on_tick=None) -> TickOutput:
     """End-to-end scenario run of a single world on the dense engine.
     ``noise``: a ``torch.Generator`` on ``device`` or a :class:`TickNoise`
-    sequence; ``device=None`` is the card. Returns stacked TickOutputs
-    ``(T, ...)``; metrics are computed by the caller."""
+    sequence; ``device=None`` is the card; ``on_tick`` as in
+    :func:`rollout`. Returns stacked TickOutputs ``(T, ...)``; metrics are
+    computed by the caller."""
     device = resolve(device)
     params = scn.world_params(dtype, device)
     Q, R = scn.noise_matrices(dtype, device)
     state = init_pipeline(scn, dtype, device)
-    _, outs = rollout(scn, params, Q, R, state, noise, steps=steps)
+    _, outs = rollout(scn, params, Q, R, state, noise, steps=steps,
+                      on_tick=on_tick)
     return outs
 
 
@@ -253,14 +258,14 @@ def run_scenario_batch(scn: ScenarioConfig, noise, batch: int, steps=None,
     T = scn.steps if steps is None else steps
     B = batch
     cmds = command_twist(scn, T, dtype, device)
-    src = _NoiseSource(scn, noise, (B,), dtype, device)
+    src = NoiseSource(scn, noise, (B,), dtype, device)
 
     sense = init_sense(params, dtype, (B,))
     one = ekf.init(ecfg, [0.0, 0.0, 0.0], dtype=dtype, device=device)
     filt = ekf.EKFState(*(f.expand(B, *f.shape).clone() for f in one))
     step = torch.func.vmap(
         lambda f, tw_, zs_, v_: filter_tick(scn, Q, R, f, tw_, zs_, v_))
-    outs = _alloc_outputs((B,), T, dtype, device)
+    outs = alloc_outputs((B,), T, dtype, device)
     for t in range(T):
         sense, twist, zs, valid, obs = sense_tick(
             scn, params, sense, cmds[t], src.tick(t))
@@ -303,11 +308,11 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
     T = scn.steps if steps is None else steps
     B = batch
     cmds = command_twist(scn, T, dtype, device)
-    src = _NoiseSource(scn, noise, (B,), dtype, device)
+    src = NoiseSource(scn, noise, (B,), dtype, device)
 
     sense = init_sense(params, dtype, (B,))
     filt = ekf_batch.init(ecfg, B, dtype=dtype, device=device)
-    outs = _alloc_outputs((B,), T, dtype, device)
+    outs = alloc_outputs((B,), T, dtype, device)
     gate_margins = [] if margins is not None or gate_trace is not None \
         else None
     tick_margins = {} if margins is not None else None

@@ -116,6 +116,24 @@ ENTRY_POINTS = {
         fromlist=["x"]).run_scenario_batch_lanes(
             tconfig.get_scenario("stock6"), torch.Generator(), 2, steps=1,
             device=d),
+    "staged.make_staged_rollout": lambda d: __import__(
+        "shermbot_navigation_tpu_torch.pipeline.staged",
+        fromlist=["x"]).make_staged_rollout(
+            tconfig.get_scenario("loop5_known"), device=d)(
+                torch.Generator(), 1),
+    "guards.run_scenario_checked": lambda d: __import__(
+        "shermbot_navigation_tpu_torch.utils.guards",
+        fromlist=["x"]).run_scenario_checked(
+            tconfig.get_scenario("loop5_known"), torch.Generator(),
+            device=d, steps=1),
+    "fake_turtle.init_state": lambda d: __import__(
+        "shermbot_navigation_tpu_torch.sim.fake_turtle",
+        fromlist=["x"]).init_state(device=d),
+    "robot.diff_drive_params": lambda d: __import__(
+        "shermbot_navigation_tpu_torch.utils.robot",
+        fromlist=["x"]).TURTLEBOT3_BURGER.diff_drive_params(device=d),
+    "entry.entry": lambda d: __import__(
+        "shermbot_navigation_tpu_torch.entry", fromlist=["x"]).entry(d),
     "convert.batch_state_from_numpy": lambda d: __import__(
         "shermbot_navigation_tpu_torch.utils.convert",
         fromlist=["x"]).clusters_from_numpy(

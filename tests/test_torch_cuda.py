@@ -31,7 +31,12 @@ Config 4 over 8 map shards in one process never waits for the device,
 and an nccl mesh whose two ranks share the card raises.
 Config 5's refinement (no kernel) runs on the card by default, equals the
 CPU run in f64 within 1e-9, its GN step never waits for the device, and a
-checkpoint of it loads back onto the card bit for bit.
+checkpoint of it loads back onto the card bit for bit. Kernel 3 for B
+worlds (one launch through ``torch.func.vmap``) gives each world the bits
+of its own launch; the guarded deferred tick never waits for the device
+and equals the unguarded one bit for bit; the staged pipeline on two
+streams equals its sequential oracle (poses 1e-6 / 1e-4, as
+``tests/test_staged.py``).
 """
 
 import json
@@ -916,3 +921,114 @@ def test_nccl_with_two_ranks_on_one_card_raises(dev):
     from shermbot_navigation_tpu_torch.parallel import mesh as mesh_lib
     with pytest.raises(RuntimeError, match="nccl needs a card of its own"):
         mesh_lib.run_cluster(_nccl_mesh, 2, backend="nccl", timeout=120)
+
+
+def test_cov_update_batched_launch_equals_single_launches(dev):
+    """Kernel 3 for B worlds in one launch, reached through
+    ``torch.func.vmap`` of the one-world wrapper: each world gets the bits
+    of its own one-world launch (its flag included), one launch for all;
+    and the dense engine with ``'on'`` under vmap launches once an update
+    for the B worlds."""
+    Bw, D = 5, 384
+    rng = np.random.default_rng(21)
+    a = rng.normal(size=(Bw, D, D)).astype(np.float32)
+    ops = [torch.from_numpy(x).to(dev) for x in (
+        a @ a.transpose(0, 2, 1) / D,
+        rng.normal(size=(Bw, D, 2)).astype(np.float32),
+        np.tile(np.array([[2.0, -0.3], [-0.3, 1.5]], np.float32), (Bw, 1, 1)),
+        rng.normal(size=(Bw, 2)).astype(np.float32),
+        rng.normal(size=(Bw, D)).astype(np.float32))]
+    apply = torch.tensor([True, False, True, True, False], device=dev)
+    before = tcu.fused_kalman_update.launches
+    cov, mean = torch.func.vmap(tcu.fused_kalman_update)(*ops, apply)
+    torch.cuda.synchronize()
+    assert tcu.fused_kalman_update.launches == before + 1
+    for b in range(Bw):
+        c1, m1 = tcu.fused_kalman_update(*(x[b] for x in ops), apply[b])
+        assert torch.equal(cov[b], c1) and torch.equal(mean[b], m1), b
+    want = tcu.reference_kalman_update(*ops, apply=apply)
+    torch.testing.assert_close(cov, want[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(mean, want[1], rtol=0, atol=1e-5)
+
+    cfg = ekf_slam.EKFConfig(num_landmarks=6, pad_state_to=128,
+                             pallas_update="on")
+    one = ekf_slam.init(cfg, [0.0, 0.0, 0.0], device=dev)
+    st = ekf_slam.EKFState(*(f.expand(Bw, *f.shape).clone() for f in one))
+    zs = torch.tensor([[0.8, 0.2], [0.9, -1.0], [0.5, 2.0]], device=dev)
+    step = torch.func.vmap(lambda s, tw: ekf_slam.known_association_step(
+        cfg, s, tw, zs, torch.ones(3, dtype=torch.bool, device=dev),
+        torch.arange(3, dtype=torch.int32, device=dev),
+        torch.eye(3, device=dev) * 1e-3, torch.eye(2, device=dev) * 1e-3))
+    before = tcu.fused_kalman_update.launches
+    st = step(st, torch.full((Bw, 3), 0.01, device=dev))
+    torch.cuda.synchronize()
+    assert tcu.fused_kalman_update.launches - before == 3
+    assert st.mean.shape == (Bw, 128) and bool(torch.isfinite(st.cov).all())
+
+
+def test_guarded_tick_never_waits_for_the_device(dev):
+    """``guards.checked_blocked_tick`` around the deferred tick (kernels 1
+    and 2): no synchronizing call in five guarded ticks (PyTorch's sync
+    debug mode raises on any), the state equal to the unguarded tick's,
+    and only ``err.throw()`` reads the record."""
+    from shermbot_navigation_tpu_torch.utils import guards
+    N, M = 256, 8
+    cfg = EKFConfig(num_landmarks=N)
+    Q, R = bigmap.noise(device=dev)
+    wl = bigmap.make_workload(N, 16, M, device=dev)
+    valid = torch.ones((1, M), dtype=torch.bool, device=dev)
+    step = blocked_ekf.make_deferred_step(cfg, M, dev)
+    tick = guards.checked_blocked_tick(step)
+    plain = guarded = blocked_ekf.init(cfg, 1, device=dev)
+    plain = blocked_ekf.BlockedState(*(x.clone() for x in plain))
+
+    def args(t):
+        zs, ids, tw = bigmap.measurements(wl, t)
+        return tw[None], zs[None], valid, ids[None], Q, R
+
+    err, guarded = tick(guarded, *args(0))          # builds and launches
+    plain = step(plain, *args(0))
+    torch.cuda.synchronize()
+    errs = [err]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 6):
+            err, guarded = tick(guarded, *args(t))
+            errs.append(err)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for t in range(1, 6):
+        plain = step(plain, *args(t))
+    torch.cuda.synchronize()
+    for e in errs:
+        e.throw()
+    for f in blocked_ekf.BlockedState._fields:
+        assert torch.equal(getattr(guarded, f), getattr(plain, f)), f
+
+
+def test_staged_rollout_on_two_streams_equals_its_oracle(dev):
+    """``lidar20_full`` staged on two streams of the card against the
+    sequential oracle on one: the same draws from one seed, equal
+    ``n_seen`` every tick, poses within ``tests/test_staged.py``'s 1e-6 /
+    1e-4; kernel 4's tail launched once a tick."""
+    from shermbot_navigation_tpu_torch.pipeline import staged
+    scn = get_scenario("lidar20_full")
+    T = 12
+
+    def gen():
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        return g
+
+    before = cfk.fit_tail.launches
+    got = staged.make_staged_rollout(scn)(gen(), T)
+    torch.cuda.synchronize()
+    assert cfk.fit_tail.launches - before == T
+    ref = staged.staged_reference(scn, gen(), T)
+    assert torch.equal(got.n_seen, ref.n_seen)
+    torch.testing.assert_close(got.true_pose, ref.true_pose, rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(got.odom_pose, ref.odom_pose, rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(got.slam_pose, ref.slam_pose, rtol=0,
+                               atol=1e-4)

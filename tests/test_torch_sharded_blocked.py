@@ -274,3 +274,48 @@ def test_run_bigmap_over_shards_matches_jax(deferred):
                                        err_msg=f)
         else:
             np.testing.assert_array_equal(g, w, err_msg=f)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
+def test_sharded_checkpoint_crosses_packages(direction, tmp_path):
+    """A ``save_sharded`` file of one package loads into the other's
+    ``load_sharded`` bit for bit: the JAX package on a 1 x 2 ('data',
+    'map') mesh of two virtual CPU devices, the port on a 1 x 2
+    ``MapMesh`` (one process, two local shards); random values in every
+    field, f32 as the card keeps them."""
+    from shermbot_navigation_tpu.pipeline import checkpoint as jckpt
+    from shermbot_navigation_tpu_torch.pipeline import checkpoint as tckpt
+    rng = np.random.default_rng(11)
+    cfg = tekf.EKFConfig(num_landmarks=N)
+    st = tblocked.init(cfg, B, device="cpu")
+    st = tblocked.BlockedState(*(
+        torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+        if x.is_floating_point()
+        else torch.from_numpy(rng.integers(0, 2 * N, x.shape)).to(x.dtype)
+        for x in st))
+    jmesh = jmake_mesh(jax.devices()[:2], data=1, map_=2)
+    specs = jblocked.state_sharding(jmesh)
+    jst = jax.tree_util.tree_map(
+        lambda x, s: jax.device_put(jnp.asarray(x.numpy()),
+                                    NamedSharding(jmesh, s)),
+        jblocked.BlockedState(*st), specs)
+    mesh = tmesh.make_mesh(data=1, map_=2, local_shards=2, device="cpu")
+    path = str(tmp_path / "ckpt")
+    if direction == "jax_to_torch":
+        jckpt.save_sharded(path, jst, step=5)
+        like = tblocked.shard_state(tblocked.init(cfg, B, device="cpu"), mesh)
+        got, step = tckpt.load_sharded(path, like, mesh)
+        got = tblocked.unshard_state(got, mesh)
+    else:
+        tckpt.save_sharded(path, tblocked.shard_state(st, mesh), mesh, step=5)
+        jlike = jblocked.init(jekf.EKFConfig(num_landmarks=N), B,
+                              dtype=jnp.float32)
+        got, step = jckpt.load_sharded(path, jlike, jmesh, specs)
+        assert got.cov_mm.sharding.is_equivalent_to(
+            NamedSharding(jmesh, specs.cov_mm), 5)
+        got = jblocked.BlockedState(*(torch.from_numpy(np.array(x))
+                                      for x in got))
+    assert step == 5
+    for f in tblocked.BlockedState._fields:
+        g, w = getattr(got, f), getattr(st, f)
+        assert g.dtype == w.dtype and torch.equal(g, w), f
