@@ -7,9 +7,11 @@ at B=1024 worlds with the buffered perception path beside it, configs
 entry's path) on both batched engines, with the batch sweep, config 4
 (``run_bigmap``) for 8 worlds, deferred and sequential, and config 5
 (``run_megamap``: loop closure and map-sharded Schur refinement of a
-50,000-landmark map), and the last modules: the staged pipeline on two
+50,000-landmark map), the last modules: the staged pipeline on two
 streams, the guarded tick, ``cli run``, the compile entry and kernel 3
-for B worlds under ``torch.func.vmap``.
+for B worlds under ``torch.func.vmap``; config 3's quality mode
+(``lidar20_tuned``) on both batched engines, and serving at the
+single-card edge (N = 32768 and 65536).
 
     python3 chip_smoke.py
 
@@ -87,7 +89,7 @@ It imports nothing of JAX. Phases, one JSON line each:
 14. perception_buffered -- on every tick's (1024, 360) scans of phase 13,
    ``detect_landmarks(segmented=False)`` through the whole-fit kernel:
    ``valid`` equal to phase 13's segmented detections (every tick) and
-   to the plain-version route on the card (every 4th tick's scans),
+   to the plain-version route on the card (every 8th tick's scans),
    positions within stated bounds; the
    circle_fit counter equals the ticks run. On every 50th tick's clusters
    also the tensor-form fit (``fit_circles(componentized=False)``, behind
@@ -136,7 +138,7 @@ It imports nothing of JAX. Phases, one JSON line each:
    m; median-world ATE, diverged fraction and median NEES over all worlds
    (never a pooled RMSE); then ``run_scenario_batch`` on the first 50
    ticks of the first 256 worlds against the lanes run; (d)
-   ``course12_tuned`` at B=1024 for 300 ticks: no world may diverge; (e) config 1's
+   ``course12_tuned`` at B=1024 for 150 ticks: no world may diverge; (e) config 1's
    batch sweep on the lanes engine from B=16384 by 4x past 262144 while
    world x ticks / s grows by more than 10% and a full run's outputs fit,
    the saturation point, and ``torch.profiler`` over 4 ticks of each
@@ -228,6 +230,33 @@ It imports nothing of JAX. Phases, one JSON line each:
    to 8 single launches and held to the plain version, the dense engine
    with ``'on'`` under vmap launching once an update for all worlds, ms
    beside the bound and ``torch.baddbmm``.
+22. lidar20_tuned -- config 3's quality mode (nearest-neighbour
+   association, chi-square gates, wrapped innovations, multiplicative
+   slip) through ``run_scenario_batch_lanes`` at B3 worlds for its 600
+   ticks, every counter set to 0 just before and read after (kernel 4's
+   tail once a tick, nothing else): the first 8 worlds on the draws of
+   ``tests/fixtures/lidar20_tuned_golden.json`` held to the JAX f32 run
+   (bounds and reasons beside LIDAR_TUNED_TOL), no world diverged,
+   median-world ATE, diverged fraction, median NEES and world x ticks /
+   s; then ``run_scenario_batch`` on the first B22_VMAPPED worlds and
+   T22_VMAPPED ticks of the same noise against the lanes run (the tail
+   once a tick), and the tail kernel bit for bit against its plain
+   version on the last tick's scans.
+23. edge -- ``ServingEngine`` at N = 32768 and 65536, M=8 (planes of
+   17.2 and 68.7 GB; the scan's 4- and 8-lane plans with the op history
+   in global memory): ``init``'s peak allocation within 1% of the state;
+   EDGE_FILL known ticks from the prior, then known and unknown ticks
+   revisiting the seen slots (the unknown engine serving the same state,
+   no copy), every counter set to 0 just before and read after (kernels 1
+   and 2 once a tick at their default plans, printed); on the next tick
+   kernel 2 against its plain version on the same inputs and on the same
+   words (the read columns transposed in place), bit-equal across cluster
+   sizes, and kernel 1 over the whole planes against its plain version on
+   a band of EDGE_BAND rows, and again on random planes of that many
+   rows; ms a tick, the device split of a tick, both kernels by CUDA
+   events and profiler beside their bounds, the scan's latency floor,
+   ``torch.baddbmm_`` on the planes, the scan instances' spills, and the
+   peak allocation beside the card's memory.
 
 Then the card line as nvidia-smi prints it, the kernels line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -236,6 +265,7 @@ Then the card line as nvidia-smi prints it, the kernels line, and last
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import math
 import re
@@ -452,18 +482,20 @@ CONFIG3_TOL = {"sim_early": 2e-5, "true_pose": 4e-2, "odom_pose": 5e-3,
                "n_seen_final": 3, "deterministic_ate": 1e-3, "ate": 1e-2}
 PERCEPTION_POS_TOL = 1e-3
 # the buffered path's plain version (~100 ms a tick at B3) runs on every
-# 4th tick's scans, to keep the whole run near 600 s
-PLAIN_EVERY = 4
+# 8th tick's scans, to keep the whole run near 600 s
+PLAIN_EVERY = 8
 CONFIG3_TIMING_ROUNDS = 3   # blocks of each row timed in turns
 
 # Phase 17, configs 1 and 2. Worlds: config 1 at bench.py's batch, its
 # dense engine at B=1024; config 2 and course12_tuned at half the batch
 # the JAX package reports them at (BENCH_NOTES.md: 2048), to keep the
 # whole run near 600 s with phases 20 and 21; the dense engine of config
-# 2 on its first 50 ticks, course12_tuned on its first 300.
+# 2 on its first 50 ticks, course12_tuned on its first 150 (phase 22 runs
+# the same nearest-neighbour association for 600 ticks on lidar20_tuned's
+# B3 worlds).
 B1, B1_VMAPPED = 16384, 1024
 B2, B2_VMAPPED, T2_VMAPPED = 1024, 256, 50
-T2_TUNED = 300         # course12_tuned's ticks (of its 600), for run time
+T2_TUNED = 150         # course12_tuned's ticks (of its 600), for run time
 # Poses against the JAX f32 run (and the two engines against each other):
 # two f32 implementations part by the rounding of the wheel-angle sums,
 # which XLA fuses (cmd_wheels + u * eta in one rounding) and the port
@@ -582,6 +614,79 @@ ENTRY_TOL = 1e-5
 DENSE_VMAP_TOL = 1e-5
 CONFIG1_CARD_ATE = 0.05198974   # lanes engine, f32, NVIDIA H100 (PERF.md)
 
+# Phase 22, config 3's quality mode (lidar20_tuned: nearest-neighbour
+# association at chi-square gates 0.2 / 60, wrapped innovations,
+# multiplicative slip), at B3 worlds for its 600 ticks; the first 8 worlds
+# on the draws of tests/fixtures/lidar20_tuned_golden.json (JAX, XLA, CPU,
+# f32), the rest seeded. The noise-free lidar makes this scenario far more
+# sensitive to rounding than config 3: a fully seen tube's moment matrix
+# is singular up to rounding, the fit moves by centimetres on an ulp
+# (CONFIG3_TOL's note), and nearest association carries such a fit into
+# the map instead of skipping it at a 0.01 gate. The reference against
+# itself shows it: JAX's f64 run of the fixture's 8 worlds parts from its
+# f32 run in n_seen at ticks 42-254 (a landmark entering a tick apart;
+# never by more than 1, the final counts equal, equal on 96-100% of the
+# ticks; the deterministic world on all 600), its SLAM poses up to 0.063 m
+# and its per-world ATE up to 0.0246 m (the deterministic world 1.2e-5 m),
+# while JAX's two f32 engines (the same XLA operations) agree within 1e-5
+# m. The port's f32 run on a CPU against the fixture: n_seen equal on 599
+# and 600 of 600 ticks, detections a tick equal on 99.8-100%, the
+# simulator within 3.2e-6 before tick 200 (true pose 1.6e-4, odometry
+# 2.3e-3 over the run: config 3's wheel-angle drift), per-world ATE up to
+# 0.0246 m apart (the deterministic world 1.1e-3 m). So the card is held
+# to: the deterministic world's n_seen at every tick and its ATE within
+# 1e-2 m; every world's n_seen within 1 at every tick, equal on 95% of
+# the ticks and at the end; detections as config 3's (equal before tick
+# CONFIG3_EARLY, on 95% of the ticks, never 3 apart); the simulator as
+# config 3's; each noisy world's ATE within twice the reference's own
+# f32-to-f64 distance; no world of the B3 diverged (ATE > 1 m). Tick for
+# tick equality with JAX is held in f64 on the CPU by
+# tests/test_torch_tuned.py (1e-10 with range noise).
+GOLDEN_LIDAR_TUNED = FIXTURES / "lidar20_tuned_golden.json"
+LIDAR_TUNED_TOL = {"sim_early": 2e-5, "true_pose": 4e-2, "odom_pose": 5e-3,
+                   "n_detections_share": 0.95, "n_detections_diff": 3,
+                   "n_seen_share": 0.95, "n_seen_diff": 1,
+                   "deterministic_ate": 1e-2, "ate": 5e-2}
+# the dense engine under torch.func.vmap on the first worlds and ticks of
+# the same noise, against the lanes run (as config 2's, phase 17c)
+B22_VMAPPED, T22_VMAPPED = 64, 50
+
+# Phase 23, serving at the single-card edge: N = 32768 and 65536 (planes
+# of 17.2 and 68.7 GB), M=8, where the scan runs its 4- and 8-lane plans
+# with the op history in global memory. Filling such a map by ticks (N/M +
+# 8 of ~45 ms at 65536) would take minutes, so the ticks run on phase 4's
+# partial state instead: EDGE_FILL known ticks over the first slots from
+# the prior, then EDGE_TIMED known and EDGE_TIMED unknown ticks timed on
+# it. Nothing on the checking path copies the planes: kernel 1 is held to
+# its plain version on a band of EDGE_BAND rows of the tick's planes (a
+# copy of 16 x EDGE_BAND x N bytes) and on random rectangular planes of as
+# many rows; kernel 2's same-words check transposes only the grid columns
+# the tick's updates read, in place, and puts them back after.
+EDGE_SIZES = (32768, 65536)
+EDGE_FILL = T - 20
+EDGE_TIMED = 20
+EDGE_PROFILE = 3
+EDGE_BAND = 2048
+EDGE_CHUNK = 512       # rows of the band's plain version at a time
+# Kernel 2 at the edge against its plain version. The map is 362 and 512 m
+# wide and the robot circles near its centre, so the tick measures
+# landmarks 150-250 m away at R = 1e-3: bearing noise is metres there, the
+# cross-covariances run to ~100 and the gain's f32 cancellation grows with
+# them (phase 16 saw the same trend from N=8192 to 16384). On the edge
+# tick the f32 plain version itself is up to 2.6e-4 of Kb's scale from the
+# f64 plain version on the same words, the kernel up to 5.3e-4: two f32
+# roundings of an ill-conditioned gain, no longer resolvable at SCAN_TOL
+# (NVIDIA H100 80GB HBM3, 700.00 W, readings at both sizes: kernel
+# against f32 plain on the same inputs 4.0e-4 / 8.5e-4 of scale, on the
+# same words 2.6e-4 / 7.9e-4, at N = 32768 / 65536, known; SCAN_TOL failed
+# there first). So the edge holds the kernel to SCAN_TOL_ROW_FOR_COLUMN
+# three ways: against the f32 plain version on the same inputs and on the
+# same words, and against the f64 plain version on the same words (the
+# exact answer to what it reads, which no f32 rounding order explains
+# away); discrete outputs exactly. A wrong replay term, component or
+# history read moves an output by a fraction of its scale.
+EDGE_SCAN_TOL = SCAN_TOL_ROW_FOR_COLUMN
+
 KERNELS = {
     "grid_update": {
         "source": f"{PKG}/csrc/grid_update.cu",
@@ -624,6 +729,19 @@ KERNELS = {
     "cov_update_batched": {
         "source": f"{PKG}/csrc/cov_update.cu",
         "replaces": "shermbot_navigation_tpu/ops/pallas/cov_update.py:70"},
+    # kernel 4's tail on lidar20_tuned's segmented perception (phase 22)
+    "circle_fit_tail_tuned": {
+        "source": f"{PKG}/csrc/circle_fit.cu",
+        "replaces": "shermbot_navigation_tpu/ops/circle_fit.py:133"},
+    # kernels 1 and 2 at the single-card edge (phase 23)
+    **{f"{k}_n{n}": ({
+        "source": f"{PKG}/csrc/grid_update.cu",
+        "replaces": "shermbot_navigation_tpu/ops/pallas/grid_update.py:87"}
+        if k == "grid_update" else {
+        "source": f"{PKG}/csrc/seq_scan.cu",
+        "replaces": "shermbot_navigation_tpu/ops/pallas/seq_scan.py:455"})
+       for n in EDGE_SIZES
+       for k in ("grid_update", "seq_scan", "seq_scan_unknown")},
 }
 # f32 operations of one cluster's fit tail, counted from csrc/circle_fit.cu:
 # a Jacobi rotation is 75 multiplies, adds and subtracts and three calls
@@ -685,17 +803,18 @@ def cuda_ms(fn, inner: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def grid_operands(rng, dev, n=N):
-    """Random grid-pass operands at n, M with rowT/colT holding ties,
-    repeated op indices and -1."""
+def grid_operands(rng, dev, n=N, nl=None):
+    """Random grid-pass operands at n, M (planes of ``nl`` rows, default
+    n) with rowT/colT holding ties, repeated op indices and -1."""
+    nl = n if nl is None else nl
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(1 << 31)))
     f = lambda *s: torch.randn(s, generator=gen, device=dev)
-    rowt = rng.integers(-1, M, n).astype(np.int32)
+    rowt = rng.integers(-1, M, nl).astype(np.int32)
     colt = rng.integers(-1, M, n).astype(np.int32)
-    colt[::7] = rowt[::7]                      # ties at equal op index
-    return (f(2, 2, n, n), f(2, n, 2 * M), f(2, 2 * M, n), f(2, 2, M, n),
-            f(2, 2, n, M), torch.from_numpy(rowt).to(dev),
+    colt[:nl:7] = rowt[:n:7]                   # ties at equal op index
+    return (f(2, 2, nl, n), f(2, nl, 2 * M), f(2, 2 * M, n), f(2, 2, M, n),
+            f(2, 2, nl, M), torch.from_numpy(rowt).to(dev),
             torch.from_numpy(colt).to(dev))
 
 
@@ -1365,10 +1484,10 @@ def phase_dense_timing(dev, dense, cov_ops, unk_args):
     return per_call
 
 
-def lidar_fixture():
-    """The JAX golden run of ``lidar20_full`` (8 worlds, CPU, f32) and its
-    replayed slip normals ``(T, 7, S, 2)``."""
-    golden = json.loads(GOLDEN_LIDAR.read_text())
+def lidar_fixture(path=GOLDEN_LIDAR):
+    """The JAX golden run of ``lidar20_full`` (or of ``path``'s scenario;
+    8 worlds, CPU, f32) and its replayed slip normals ``(T, 7, S, 2)``."""
+    golden = json.loads(path.read_text())
     slip = np.frombuffer(base64.b64decode(golden["slip_normals_f32_b64"]),
                          "<f4").reshape(golden["slip_normals_shape"])
     return golden, slip
@@ -4223,6 +4342,512 @@ def phase_aux(dev, cfg, entry_proc):
     return phase_cov_batched(dev)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: config 3's quality mode (lidar20_tuned)
+# ---------------------------------------------------------------------------
+
+def tuned_fixture_checks(outs, n_det, golden, T):
+    """The fixture worlds of a ``lidar20_tuned`` run against the JAX f32
+    run, world by world (the bounds: LIDAR_TUNED_TOL's note). Returns
+    (what was measured, the failures)."""
+    tol = LIDAR_TUNED_TOL
+    nfix = golden["B"]
+    det_world = nfix - 1
+    early = min(T, CONFIG3_EARLY)
+    n_det = n_det[:, :nfix].T.cpu()                           # (nfix, T)
+    g_det = torch.tensor(golden["n_detections"])[:, :T]
+    g_seen = torch.tensor(golden["n_seen"])[:, :T]
+    n_seen = outs.n_seen[:nfix].cpu().long()
+    ev = golden["pose_every"]
+    ns = T // ev
+    pose_err, pose_err_early = {}, {}
+    for f in ("true_pose", "odom_pose", "slam_pose"):
+        got = getattr(outs, f)[:nfix, ev - 1::ev][:, :ns].double().cpu()
+        d = got - torch.tensor(golden[f], dtype=torch.float64)[:, :ns]
+        d[..., 0] = se2.normalize_angle(d[..., 0])
+        pose_err[f] = float(d.abs().max())
+        pose_err_early[f] = float(d[:, :early // ev].abs().max())
+    ate = bench.world_ate(outs)[:nfix].cpu()
+    ate_err = (ate - torch.tensor(golden["ate"], dtype=torch.float64)).abs()
+    seen_diff = (n_seen - g_seen).abs()
+    got = {
+        "worlds": nfix, "early_ticks": early,
+        "n_seen_equal_ticks": (seen_diff == 0).sum(-1).tolist(),
+        "n_seen_first_parting": [
+            int(torch.nonzero(r)[0]) if bool(r.any()) else None
+            for r in seen_diff > 0],
+        "n_seen_max_diff": int(seen_diff.max()),
+        "n_seen_final": n_seen[:, -1].tolist(),
+        "golden_n_seen_final": g_seen[:, -1].tolist(),
+        "n_detections_equal_early": bool(torch.equal(n_det[:, :early],
+                                                     g_det[:, :early])),
+        "n_detections_equal_share": (n_det == g_det).double().mean(-1)
+        .tolist(),
+        "n_detections_max_diff": int((n_det - g_det).abs().max()),
+        "pose_max_abs_err": pose_err, "pose_max_abs_err_early":
+        pose_err_early, "ate": ate.tolist(), "golden_ate": golden["ate"],
+        "ate_abs_err": ate_err.tolist()}
+    bad = []
+    if bool(seen_diff[det_world].any()):
+        bad.append("the deterministic world's n_seen differs from JAX's")
+    if not float(ate_err[det_world]) <= tol["deterministic_ate"]:
+        bad.append(f"the deterministic world's ATE {float(ate[det_world])} "
+                   f"against JAX's {golden['ate'][det_world]}")
+    if (got["n_seen_max_diff"] > tol["n_seen_diff"]
+            or min(got["n_seen_equal_ticks"]) < tol["n_seen_share"] * T
+            or got["n_seen_final"] != got["golden_n_seen_final"]):
+        bad.append(f"n_seen against JAX: equal on {got['n_seen_equal_ticks']}"
+                   f" ticks, apart by {got['n_seen_max_diff']}, final "
+                   f"{got['n_seen_final']}")
+    if (not got["n_detections_equal_early"]
+            or min(got["n_detections_equal_share"])
+            < tol["n_detections_share"]
+            or got["n_detections_max_diff"] > tol["n_detections_diff"]):
+        bad.append(f"detections a tick against JAX: equal early "
+                   f"{got['n_detections_equal_early']}, shares "
+                   f"{got['n_detections_equal_share']}")
+    for f in ("true_pose", "odom_pose"):
+        if not (pose_err_early[f] <= tol["sim_early"]
+                and pose_err[f] <= tol[f]):
+            bad.append(f"{f} off by {pose_err_early[f]} early, "
+                       f"{pose_err[f]} over the run")
+    if not float(ate_err.max()) <= tol["ate"]:
+        bad.append(f"fixture worlds' ATE off by {got['ate_abs_err']}")
+    return got, bad
+
+
+def tail_kernel_row(scn, scan):
+    """Kernel 4's tail against its plain version, bit for bit, on the
+    segmented path's own moments of ``scan`` (one tick's scans), with its
+    time, its plain version's and its bound."""
+    params = scn.world_params(device=scan.device)
+    tail_in = landmark_detection._segment_fit_inputs(
+        scan, params.scan_min, params.scan_max, C3, P3)[:6]
+    got = cfk.fit_tail(*tail_in, use_kernel=True)
+    torch.cuda.synchronize()
+    want = cfk.fit_tail(*tail_in, use_kernel=False)
+    C = got[2].numel()
+    return {"C": C, "n_ok": int(got[2].sum()),
+            "first_difference_vs_plain_chain": first_difference(got, want),
+            "max_abs_err": max(float((a.double() - b.double()).abs()
+                                     .nan_to_num(0.0).max())
+                               for a, b in zip(got[:2], want[:2])),
+            "ms": cuda_ms(lambda: cfk.fit_tail(*tail_in, use_kernel=True),
+                          20, 3),
+            "device_ms": profiled_device_ms(
+                lambda: cfk.fit_tail(*tail_in, use_kernel=True),
+                "circle_fit", 10),
+            "plain_ms": cuda_ms(lambda: cfk.fit_tail(*tail_in,
+                                                     use_kernel=False), 1, 3),
+            **bound_of((13 * 4 + 4 + 1) * C + 13 * C, TAIL_FLOPS * C)}
+
+
+def phase_lidar20_tuned(dev):
+    """Phase 22: ``lidar20_tuned`` on the card. The main path,
+    ``run_scenario_batch_lanes`` at B3 worlds for the scenario's T_CONFIG3
+    ticks with every counter set to 0 just before and read after (kernel
+    4's tail once a tick, no other kernel); the fixture worlds held to the
+    JAX f32 run (``tuned_fixture_checks``); no world may diverge; the
+    median-world ATE, the diverged fraction, the median NEES and world x
+    ticks / s. Then ``run_scenario_batch`` (the dense engine under
+    ``torch.func.vmap``) on the first B22_VMAPPED worlds and T22_VMAPPED
+    ticks of the same noise against the lanes run, the tail once a tick;
+    and the tail kernel against its plain version, bit for bit, on the
+    last tick's scans. Returns the kernels line's row."""
+    scn = get_scenario("lidar20_tuned")
+    golden, gslip = lidar_fixture(GOLDEN_LIDAR_TUNED)
+    T = T_CONFIG3
+    if golden["scenario"] != scn.name or golden["T"] != T:
+        fail(f"tuned fixture is for {golden['scenario']}, T={golden['T']}")
+    noise = config3_noise(scn, dev, gslip, T)
+    n_det = torch.empty((T, B3), dtype=torch.int64, device=dev)
+    last = {}
+
+    def keep(t, obs, zs, valid):
+        n_det[t] = valid.sum(-1)
+        if t == T - 1:
+            last["scan"] = obs.scan
+
+    reset_counters()
+    outs, seconds = timed_run(driver.run_scenario_batch_lanes, scn, noise,
+                              B3, steps=T, device=dev, on_tick=keep)
+    launches = kernel_launches()
+    fixture, bad = tuned_fixture_checks(outs, n_det, golden, T)
+    ate = bench.world_ate(outs)
+    diverged = int((ate > 1.0).sum())
+    finite = all_finite(outs)
+    emit(phase="lidar20_tuned", scenario=scn.name, B=B3, T=T,
+         seconds=seconds, ms_per_tick=seconds * 1e3 / T,
+         world_ticks_per_s=B3 * T / seconds, finite=finite,
+         launches=launches, fixture=fixture, tol=LIDAR_TUNED_TOL,
+         all_worlds={"median_ate": float(ate.median()),
+                     "p99_ate": float(torch.quantile(ate, 0.99)),
+                     "max_ate": float(ate.max()), "diverged": diverged,
+                     "diverged_fraction": diverged / B3,
+                     "median_nees": float(outs.nees.median()),
+                     "median_n_seen": float(outs.n_seen[:, -1].float()
+                                            .median()),
+                     "detections_per_tick": float(n_det.float().mean())},
+         note="one lanes run of all B worlds: ms a tick and world x "
+              "ticks / s by host clock over the whole run")
+    if not finite or diverged:
+        fail(f"lidar20_tuned: finite {finite}, {diverged} of {B3} worlds "
+             f"diverged")
+    if launches != {k: T if k == "circle_fit_tail" else 0
+                    for k in launches}:
+        fail(f"lidar20_tuned launched {launches}, want the tail {T} times")
+    if bad:
+        fail(f"lidar20_tuned's fixture worlds against the JAX run: {bad}")
+
+    Tv, Bv = T22_VMAPPED, B22_VMAPPED
+    part = tube_world.TickNoise(*(f[:Tv, :Bv] for f in noise))
+    del noise
+    reset_counters()
+    dense, v_seconds = timed_run(driver.run_scenario_batch, scn, part, Bv,
+                                 steps=Tv, device=dev)
+    v_launches = kernel_launches()
+    ref = driver.TickOutput(*(f[:Bv, :Tv] for f in outs))
+    seen_eq, err, ok = engines_agree(dense, ref, CONFIGS12_POSE_TOL)
+    tail = tail_kernel_row(scn, last["scan"])
+    emit(phase="lidar20_tuned_vmapped", B=Bv, T=Tv,
+         ms_per_tick=v_seconds * 1e3 / Tv, finite=all_finite(dense),
+         launches=v_launches, n_seen_equal_every_tick=seen_eq,
+         pose_max_abs_diff=err, pose_tol=CONFIGS12_POSE_TOL,
+         tail_kernel=tail)
+    if not (all_finite(dense) and seen_eq and ok):
+        fail(f"lidar20_tuned through run_scenario_batch against the lanes "
+             f"run: n_seen equal {seen_eq}, poses off by {err}")
+    if v_launches["circle_fit_tail"] != Tv:
+        fail(f"run_scenario_batch launched the tail "
+             f"{v_launches['circle_fit_tail']} times in {Tv} ticks")
+    if tail["first_difference_vs_plain_chain"] is not None:
+        fail(f"the tail kernel differs from its plain version on "
+             f"lidar20_tuned's moments: {tail}")
+    return launches["circle_fit_tail"], tail
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: serving at the single-card edge
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def transposed_columns(planes, slots):
+    """``planes`` (4, n, n) with its columns ``slots`` replaced, in place,
+    by the words the kernel reads for them: column g of comp (p, q) <- row
+    g of comp (q, p) (PARITY D13). The plain scan reads the grid only at
+    its measurements' columns, so handed these planes it reads as column g
+    the very words the kernel reads as row g: ``transposed_planes``'s
+    same-words check without a copy of the planes. Yields the largest
+    asymmetry of those columns (|column - transposed row|); puts them back
+    on exit."""
+    P = planes.view(2, 2, *planes.shape[-2:])
+    idx = torch.as_tensor(slots, dtype=torch.long, device=planes.device)
+    saved = P[:, :, :, idx].clone()
+    rows = P[:, :, idx, :].permute(1, 0, 3, 2)
+    asym = float((saved - rows).abs().max()) if idx.numel() else 0.0
+    P[:, :, :, idx] = rows
+    try:
+        yield asym
+    finally:
+        P[:, :, :, idx] = saved
+
+
+def edge_tick_args(st, wl, n, clock, R):
+    """The scan's arguments on the one-world state ``st`` for phase 4's
+    kind of known tick (updates of slot 5, a repeated init, an
+    out-of-range id, an init far up the map, an invalid slot), its inits
+    at the first unseen slots so that kernel 1's band holds their rows."""
+    dev = st.cov_mm.device
+    s1 = int(st.n_seen[0]) + 4
+    ids = torch.tensor([5, s1, 5, s1, n + 5, (4 * n // 7) & ~7, s1 + 1, 7],
+                       dtype=torch.int32, device=dev)
+    valid = torch.tensor([1, 1, 1, 1, 1, 1, 1, 0], dtype=torch.bool,
+                         device=dev)
+    wl = wl._replace(schedule=ids.clamp(0, n - 1)[None].expand(
+        wl.schedule.shape[0], M))
+    zs, _, _ = bigmap.measurements(wl, clock)
+    return state_scan_args(st, n) + (zs, valid, ids, R)
+
+
+def edge_scan_checks(known_args, unk_args, plan):
+    """Kernel 2 at the edge against its plain version, known and unknown,
+    within EDGE_SCAN_TOL of scale (the reasons beside it): on the same
+    inputs, on the same words (``transposed_columns``) and against the
+    f64 plain version on the same words (``in_f64`` of all but the
+    planes), discrete outputs equal; every output bit-equal to the
+    smallest cluster that holds the map. Printed beside them: each f32
+    version's distance from the f64 one on the same inputs and words."""
+    n = known_args[1].shape[-1]
+    small = next(c for c in (1, 2, 4, 8, 16)
+                 if c * sq.MAX_THREADS * sq.LANE_CHOICES[-1] >= n)
+    checks = {}
+    for name, args, kw in (("seq_scan", known_args, {}),
+                           ("seq_scan_unknown", unk_args, {"known": False})):
+        got = sq.deferred_seq_scan(*args, use_kernel=True, **kw)
+        other = sq.deferred_seq_scan(*args, use_kernel=True, cluster=small,
+                                     **kw)
+        # the f64 plain version on the same inputs: every argument widened
+        # but the planes, whose f32 columns it widens as it reads them
+        wide = in_f64(args[:7]) + (args[7],) + in_f64(args[8:])
+        plain = sq.reference_seq_scan(*args, **kw)
+        exact = sq.reference_seq_scan(*wide, **kw)
+        errs, bad = scan_compare(got, plain, EDGE_SCAN_TOL)
+        upd = got[10][got[11] == 1].unique()
+        with transposed_columns(args[7], upd) as asym:
+            plain_t = sq.reference_seq_scan(*args, **kw)
+            exact_t = sq.reference_seq_scan(*wide, **kw)
+        errs_t, bad_t = scan_compare(got, plain_t, EDGE_SCAN_TOL)
+        errs_x, bad_x = scan_compare(got, exact_t, EDGE_SCAN_TOL)
+        scale = {k: float((w[..., plain[5]] if k == "diag4" else w).abs()
+                          .max()) for k, w in zip(SCAN_NAMES, plain)
+                 if k in errs}
+        checks[name] = {
+            "plan": plan[name], "kinds": got[11].tolist(),
+            "slots": got[10].tolist(), "updated_columns": upd.tolist(),
+            "grid_asymmetry_of_read_columns": asym, "scale": scale,
+            "max_abs_err_transposed_columns": errs_t,
+            "disagree_transposed_columns": bad_t,
+            "disagree_f64_same_words": bad_x,
+            "max_abs_err": errs, "disagree": bad,
+            "max_abs_err_to_f64": {
+                "kernel": f64_distance(got, exact),
+                "plain": f64_distance(plain, exact),
+                "kernel_same_words": f64_distance(got, exact_t),
+                "plain_same_words": f64_distance(plain_t, exact_t)},
+            "bit_equal_cluster": [small, plan[name]["cluster"]],
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(got, other))}
+    return checks
+
+
+def edge_grid_check(planes, tick_ops, r0):
+    """Kernel 1's pass over the tick's whole planes (in place) against its
+    plain version on the band of EDGE_BAND rows from ``r0``, EDGE_CHUNK
+    rows at a time: (max abs error, replayed rows in the band, ms of the
+    plain version on EDGE_CHUNK rows)."""
+    A, Bm, crow, ccol, rowT, colT = tick_ops
+    band = slice(r0, r0 + EDGE_BAND)
+    before = planes[:, :, band].clone()
+    gu.fused_grid_update(planes, *tick_ops, use_kernel=True)
+    torch.cuda.synchronize()
+    err = 0.0
+    step = min(EDGE_CHUNK, EDGE_BAND)
+    for c0 in range(0, EDGE_BAND, step):
+        rows = slice(r0 + c0, r0 + c0 + step)
+        part = (before[:, :, c0:c0 + step], A[:, rows], Bm, crow,
+                ccol[:, :, rows], rowT[rows], colT)
+        want = gu.reference_grid_update(*part)
+        err = max(err, float((planes[:, :, rows] - want).abs().max()))
+        del want
+    plain_ms = cuda_ms(lambda: gu.reference_grid_update(*part), 1, 3)
+    return err, int((rowT[band] >= 0).sum()), plain_ms
+
+
+def edge_timing(planes, known_args, unk_args, tick_ops, plan, n):
+    """ms a call (CUDA events) and on the device (``torch.profiler``) of
+    both kernels at the edge beside their bounds; the scan's latency
+    floor under its plan; the plain scan's ms; ``torch.baddbmm_`` on the
+    four planes in place (the library call computing the grid pass of a
+    tick without inits). Kernel 1 runs in place on the tick's planes, so
+    this comes after every check."""
+    work = serving_work(n)
+    A, Bm = tick_ops[:2]
+    g4 = planes.view(4, n, n)
+    a4 = A[:, None].expand(2, 2, n, 2 * M).reshape(4, n, 2 * M)
+    b4 = Bm[None].expand(2, 2, 2 * M, n).reshape(4, 2 * M, n)
+    calls = {
+        "seq_scan": (lambda: sq.deferred_seq_scan(*known_args,
+                                                  use_kernel=True),
+                     lambda: sq.reference_seq_scan(*known_args), 30),
+        "seq_scan_unknown": (
+            lambda: sq.deferred_seq_scan(*unk_args, known=False,
+                                         use_kernel=True),
+            lambda: sq.reference_seq_scan(*unk_args, known=False), 30),
+        "grid_update": (lambda: gu.fused_grid_update(
+            planes, *tick_ops, use_kernel=True), None, 3)}
+    out = {}
+    for name, (call, plain, inner) in calls.items():
+        key = "grid_update" if name == "grid_update" else "seq_scan"
+        out[name] = {"ms": cuda_ms(call, inner, 3),
+                     "device_ms": profiled_device_ms(call, key,
+                                                     10 if inner > 3 else 3),
+                     **bound_of(*work[name])}
+        if plain is not None:
+            out[name]["plain_ms"] = cuda_ms(plain, 1, 3)
+        d = out[name]["device_ms"]
+        out[name]["share_of_bound"] = out[name]["bound_ms"] / d if d else None
+    out["grid_update"]["library_ms"] = cuda_ms(
+        lambda: g4.baddbmm_(a4, b4, alpha=-1.0), 3, 3)
+    floor = chain_floor(planes.device, plan["seq_scan"])
+    for name in ("seq_scan", "seq_scan_unknown"):
+        d = out[name]["device_ms"]
+        out[name]["latency_floor_ms"] = floor[name]["floor_ms"]
+        out[name]["share_of_floor"] = (floor[name]["floor_ms"] / d if d
+                                       else None)
+    out["latency_floor_terms_ns"] = {k: v for k, v in floor.items()
+                                     if k.endswith("_ns")}
+    return out
+
+
+def phase_edge(dev, ptxas_rows):
+    """Phase 23: ``ServingEngine`` at N = 32768 and 65536, M=8 (see the
+    constants above): ``init``'s peak allocation held to the state's
+    bytes; EDGE_FILL known ticks from the prior (phase 4's partial
+    state), EDGE_TIMED known ticks and EDGE_PROFILE profiled ones
+    revisiting the seen slots, then an unknown-association engine on the
+    same state (no copy) for EDGE_TIMED ticks, every counter set to 0
+    just before the first tick and read after the last (kernels 1 and 2
+    once a tick, at their default plans); then on the next tick kernel 2
+    against its plain version (``edge_scan_checks``) and kernel 1 over
+    the whole planes against its plain version on a band
+    (``edge_grid_check``), the timings (``edge_timing``), and kernel 1 on
+    random rectangular planes of EDGE_BAND rows (a launch of its own).
+    Printed beside them: the default plans, the scan instances' spills
+    (ptxas), ms a tick, the device split of a tick, and the peak
+    allocation beside the card's memory. Returns the kernels line's rows
+    by size."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {}
+    for n in EDGE_SIZES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cfg = EKFConfig(num_landmarks=n)
+        Q, R = bigmap.noise(device=dev)
+        wl = bigmap.make_workload(n, T, M, device=dev)
+        wl = wl._replace(schedule=wl.schedule % (n - n // 8))
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = serving.ServingEngine(cfg, M, Q, R, device=dev,
+                                    robot_pose=[0.0, 0.0, 0.0])
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated(dev) - base
+        state_bytes = sum(x.untyped_storage().nbytes() for x in eng.state)
+        if init_peak > 1.01 * state_bytes:
+            fail(f"init at N={n} peaked at {init_peak} bytes for a state "
+                 f"of {state_bytes}")
+        plan = {"seq_scan": sq.launch_plan(n, M),
+                "seq_scan_unknown": sq.launch_plan(n, M, known=False),
+                "grid_update": gu.launch_plan(n, n, M)}
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(EDGE_FILL):
+            zs, ids, tw = bigmap.measurements(wl, t)
+            eng.tick(tw, zs, ids=ids)
+        torch.cuda.synchronize()
+        fill_ms = (time.perf_counter() - t0) * 1e3 / EDGE_FILL
+        rev = wl._replace(schedule=wl.schedule % eng.n_seen)
+        clock = EDGE_FILL
+
+        def timed_ticks(e, known):
+            nonlocal clock
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EDGE_TIMED):
+                zs, ids, tw = bigmap.measurements(rev, clock)
+                e.tick(tw, zs, ids=ids if known else None)
+                clock += 1
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / EDGE_TIMED
+
+        ms_tick = {"known_fill": fill_ms, "known": timed_ticks(eng, True)}
+        tick_profile = profile_serving_ticks(eng, rev, clock, EDGE_PROFILE)
+        clock += EDGE_PROFILE
+        known_launches = sq.deferred_seq_scan.launches
+        unk = serving.ServingEngine(cfg, M, Q, R, known=False, device=dev,
+                                    state=eng.state)
+        ms_tick["unknown"] = timed_ticks(unk, False)
+        launches = kernel_launches()
+        ticks = EDGE_FILL + 2 * EDGE_TIMED + EDGE_PROFILE
+        st = unk.state
+        del eng, unk
+        want = {k: ticks if k in ("grid_update", "seq_scan") else 0
+                for k in launches}
+        if launches != want or known_launches != ticks - EDGE_TIMED:
+            fail(f"N={n}: launches {launches} ({known_launches} known) in "
+                 f"{ticks} ticks")
+        if not all_finite(st._replace(cov_mm=st.cov_mm[..., :1, :])):
+            # the planes are held where they are checked (a band); a
+            # whole-plane isfinite would not fit beside them at 65536
+            fail(f"N={n}: the state is not finite after {ticks} ticks")
+
+        known_args = edge_tick_args(st, wl, n, clock, R)
+        match, skip = pick_slots(known_args)
+        if len(match) < 2 or not skip:
+            fail(f"no clean match/skip slots at N={n}: {match}, {skip}")
+        unk_args = unknown_tick(known_args, [
+            ("match", match[0]), ("skip", skip[0]), ("far", 20),
+            ("invalid", 3), ("match", match[1]), ("far", 40),
+            ("skip", skip[-1]), ("match", match[0])])
+        checks = edge_scan_checks(known_args, unk_args, plan)
+        planes = st.cov_mm[0]
+        res = sq.deferred_seq_scan(*known_args, use_kernel=True)
+        tick_ops = blocked_ekf.grid_operands(*res[7:12])
+        r0 = max(0, min(n - EDGE_BAND, int(st.n_seen[0]) + 4
+                        - EDGE_BAND // 2))
+        grid_err, replayed, grid_plain_ms = edge_grid_check(planes,
+                                                            tick_ops, r0)
+        timing = edge_timing(planes, known_args, unk_args, tick_ops, plan,
+                             n)
+        timing["grid_update"]["plain_ms"] = grid_plain_ms
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_seen = int(st.n_seen[0])
+        del st, planes, known_args, unk_args, res, tick_ops
+        torch.cuda.empty_cache()
+        rnd = grid_operands(np.random.default_rng(n), dev, n, EDGE_BAND)
+        rnd_err, replay_err = grid_errors(rnd)
+        del rnd
+        torch.cuda.empty_cache()
+        spills = {name: [r for r in ptxas_rows if r["kernel"] ==
+                         f"seq_scan_kernel<{p['lanes']},"
+                         f"{1024 if p['threads'] > 512 else 512}>"]
+                  for name, p in plan.items() if name != "grid_update"}
+        emit(phase="edge", N=n, M=M, plans=plan, ptxas=spills,
+             state_bytes=state_bytes, init_peak_bytes=init_peak,
+             peak_allocated_bytes=peak, card_total_bytes=total,
+             ticks=ticks, launches=launches, n_seen=n_seen,
+             ms_per_tick=ms_tick, device_per_known_tick=tick_profile,
+             checks=checks, grid_update_band={
+                 "rows": [r0, r0 + EDGE_BAND], "replayed_rows": replayed,
+                 "max_abs_err": grid_err, "atol": GRID_ATOL},
+             grid_update_random_band={"rows": EDGE_BAND,
+                                      "max_abs_err": rnd_err,
+                                      "replay_max_abs_err": replay_err},
+             kernels=timing, scan_tol=EDGE_SCAN_TOL,
+             note="ms per tick: host clock around synchronized blocks (the "
+                  "fill's ticks init, the timed ones revisit); ms: CUDA "
+                  "events over wrapper calls; device_ms: torch.profiler; "
+                  f"grid_update's plain_ms on {EDGE_CHUNK} rows of the "
+                  "band (the "
+                  "whole pass's plain version does not fit beside the "
+                  "planes at 65536); library_ms: baddbmm_ in place on the "
+                  "four planes")
+        for name, c in checks.items():
+            held = (c["disagree"] + c["disagree_transposed_columns"]
+                    + c["disagree_f64_same_words"])
+            if held or not c["bit_equal"] or 1 not in c["kinds"]:
+                fail(f"{name} at N={n}: disagrees on {held}, bit-equal "
+                     f"across clusters {c['bit_equal']}, kinds "
+                     f"{c['kinds']}")
+        if not {0, 1, 2} <= set(checks["seq_scan"]["kinds"]):
+            fail(f"the known tick at N={n} lacks a branch: "
+                 f"{checks['seq_scan']['kinds']}")
+        if not (grid_err <= GRID_ATOL and replayed and rnd_err <= GRID_ATOL
+                and replay_err == 0.0):
+            fail(f"grid_update at N={n}: band {grid_err} ({replayed} rows "
+                 f"replayed), random {rnd_err}, replay {replay_err}")
+        for name, key in (("grid_update", "grid_update"),
+                          ("seq_scan", "seq_scan"),
+                          ("seq_scan_unknown", "seq_scan_unknown")):
+            errs = (grid_err if name == "grid_update" else
+                    max(checks[name]["max_abs_err"].values()))
+            out[f"{name}_n{n}"] = dict(
+                timing[key], max_abs_err=errs,
+                launches={"grid_update": ticks,
+                          "seq_scan": known_launches,
+                          "seq_scan_unknown": ticks - known_launches}[name])
+    return out
+
+
 def ptxas_resources(text: str):
     """Registers, shared memory and spill bytes of every kernel, from
     ``nvcc -Xptxas -v``'s output."""
@@ -4273,18 +4898,19 @@ def main() -> int:
         fail("TF32 is on")
 
     built = _build.build()
+    ptxas = ptxas_resources(built["ptxas"])
     emit(phase="build", seconds=built["seconds"], libraries=built["paths"],
-         kernels=ptxas_resources(built["ptxas"]))
+         kernels=ptxas)
     entry_proc = entry_process()
     try:
-        return run_phases(dev, card, entry_proc)
+        return run_phases(dev, card, entry_proc, ptxas)
     finally:
         if entry_proc.poll() is None:
             entry_proc.kill()
             entry_proc.wait()
 
 
-def run_phases(dev, card, entry_proc) -> int:
+def run_phases(dev, card, entry_proc, ptxas) -> int:
     cfg = EKFConfig(num_landmarks=N)
     grid_ops, grid_err = phase_grid(dev)
     scan_args = scan_inputs(dev, cfg)
@@ -4329,6 +4955,10 @@ def run_phases(dev, card, entry_proc) -> int:
     del st4, wl4
     torch.cuda.empty_cache()
     vb_launches, vb_err, vb_row = phase_aux(dev, cfg, entry_proc)
+    torch.cuda.empty_cache()
+    tuned_launches, tuned_row = phase_lidar20_tuned(dev)
+    torch.cuda.empty_cache()
+    edge_rows = phase_edge(dev, ptxas)
 
     launches = dict(launches, seq_scan_unknown=unk_launches["seq_scan"],
                     cov_update=dense_launches, circle_moments=cm_launches,
@@ -4369,6 +4999,22 @@ def run_phases(dev, card, entry_proc) -> int:
     paths[key] = (f"the dense engine ('on', D={D_PAD}) under "
                   f"torch.func.vmap for {B21} worlds: one launch an update "
                   f"({T21_DENSE} ticks of {M})")
+    key = "circle_fit_tail_tuned"
+    launches[key], errs[key] = tuned_launches, tuned_row["max_abs_err"]
+    per_call[key] = bounds[key] = tuned_row
+    lib[key] = None
+    paths[key] = (f"lidar20_tuned's segmented perception at {B3} worlds, "
+                  f"{T_CONFIG3} ticks (phase 22); timed on the last tick's "
+                  f"moments")
+    for key, row in edge_rows.items():
+        launches[key], errs[key] = row["launches"], row["max_abs_err"]
+        per_call[key] = bounds[key] = row
+        lib[key] = row.get("library_ms")
+        paths[key] = (f"ServingEngine at N={key.rsplit('_n', 1)[1]}, M={M} "
+                      f"(phase 23): {EDGE_FILL} known ticks from the prior, "
+                      f"then revisits, known and unknown; the grid pass "
+                      f"held on a band of {EDGE_BAND} rows, its plain_ms "
+                      f"on {EDGE_CHUNK} rows")
     kernels = [dict(name=k, route="cuda", source=v["source"],
                     replaces=v["replaces"], launches=launches[k],
                     max_abs_err=errs[k], ms=per_call[k]["ms"],

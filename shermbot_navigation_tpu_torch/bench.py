@@ -14,6 +14,15 @@ keys: ``metric``, ``value`` (worlds x ticks / s), ``unit``,
 limit as ``nvidia-smi`` reports them) and ``execution`` (``"eager"``: one
 launch an op, no graph capture).
 
+The quality modes ``course12_tuned`` and ``lidar20_tuned``
+(nearest-neighbour association at chi-square gates, wrapped innovations,
+multiplicative slip) have no C++ counterpart: the reference's algorithm
+cannot express them, so their rows carry ``null`` in ``vs_baseline``,
+``baseline_ticks_per_sec``, ``baseline_spread`` and ``cpp_ate_m``, and add
+``diverged_fraction`` (worlds whose ATE exceeds 1 m) and ``median_nees``
+(over every world and tick), as the JAX package's tuned rows
+(``benchmarks/bench_configs23.py``) report them.
+
 The workload is a scenario's full tick -- 5 tube-world sim substeps,
 odometry, the fake sensor, the EKF predict and its sequential updates --
 for B independent worlds in lockstep, ``steps`` ticks (the scenario's
@@ -49,6 +58,8 @@ BASELINE_DIR = Path(__file__).resolve().parents[1] / "native" / "baseline"
 BASELINE_BIN = BASELINE_DIR / "baseline"
 # the scenarios the C++ baseline also runs
 SCENARIOS = ("loop5_known", "course12_noisy", "lidar20_full")
+# the quality modes, which it cannot run
+TUNED = ("course12_tuned", "lidar20_tuned")
 # where the lanes engine's eager tick stops gaining throughput on an H100
 # (chip_smoke.py's config-1 sweep, phase configs12_sweep: 6.25 M world
 # ticks/s at 262144 worlds, 6.53 M at 1048576; PERF.md)
@@ -100,7 +111,8 @@ def world_ate(outs) -> torch.Tensor:
 def measure_port(scenario: str, engine: str, batch: int, steps: int,
                  device) -> dict:
     """Best of 3 timed runs after a warm-up: worlds x ticks / s, the
-    seconds of the best run and its median-world ATE."""
+    seconds of the best run, its median-world ATE, the share of its
+    worlds whose ATE exceeds 1 m and its median NEES."""
     scn = get_scenario(scenario)
     run = ENGINES[engine]
     sync = (torch.cuda.synchronize if device.type == "cuda"
@@ -118,35 +130,47 @@ def measure_port(scenario: str, engine: str, batch: int, steps: int,
     timed(0)
     best, outs = min((timed(seed) for seed in (1, 2, 3)),
                      key=lambda r: r[0])
+    ate = world_ate(outs)
     return {"ticks_per_sec": batch * steps / best, "seconds": best,
-            "ate": float(world_ate(outs).median())}
+            "ate": float(ate.median()),
+            "diverged_fraction": float((ate > 1.0).double().mean()),
+            "median_nees": float(outs.nees.median())}
 
 
-def row(cpp: dict, port: dict, scenario: str, engine: str, batch: int,
-        device_name: str) -> dict:
-    return {
+def row(cpp: dict | None, port: dict, scenario: str, engine: str,
+        batch: int, device_name: str) -> dict:
+    """The JSON row; ``cpp`` is None for a quality mode (C++ fields null,
+    the quality fields added)."""
+    out = {
         "metric": "slam_pipeline_ticks_per_sec_per_chip",
         "value": port["ticks_per_sec"],
         "unit": "ticks/s",
-        "vs_baseline": port["ticks_per_sec"] / cpp["ticks_per_sec"],
-        "baseline_ticks_per_sec": cpp["ticks_per_sec"],
-        "baseline_spread": [cpp["ticks_per_sec_min"],
-                            cpp["ticks_per_sec_max"]],
+        "vs_baseline": None if cpp is None
+        else port["ticks_per_sec"] / cpp["ticks_per_sec"],
+        "baseline_ticks_per_sec": None if cpp is None
+        else cpp["ticks_per_sec"],
+        "baseline_spread": None if cpp is None
+        else [cpp["ticks_per_sec_min"], cpp["ticks_per_sec_max"]],
         "batch": batch,
         "scenario": scenario,
         "engine": engine,
         "ate_m": port["ate"],
-        "cpp_ate_m": cpp["ate"],
+        "cpp_ate_m": None if cpp is None else cpp["ate"],
         "seconds_per_batch_run": port["seconds"],
         "device": device_name,
         "execution": "eager",
     }
+    if cpp is None:
+        out.update(diverged_fraction=port["diverged_fraction"],
+                   median_nees=port["median_nees"])
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--engine", choices=sorted(ENGINES), default="lanes")
-    ap.add_argument("--scenario", choices=SCENARIOS, default="loop5_known")
+    ap.add_argument("--scenario", choices=SCENARIOS + TUNED,
+                    default="loop5_known")
     ap.add_argument("--batch", type=int, default=DEFAULT_BATCH)
     ap.add_argument("--sweep", action="store_true",
                     help=f"one row per batch size of {SWEEP}")
@@ -159,7 +183,8 @@ def main(argv=None) -> int:
     device = resolve(args.device)
     steps = args.steps or get_scenario(args.scenario).steps
     name = card_name(device)
-    cpp = measure_cpp(args.scenario, args.cpp_runs)
+    cpp = (None if args.scenario in TUNED
+           else measure_cpp(args.scenario, args.cpp_runs))
     for batch in (SWEEP if args.sweep else (args.batch,)):
         port = measure_port(args.scenario, args.engine, batch, steps, device)
         print(json.dumps(row(cpp, port, args.scenario, args.engine, batch,

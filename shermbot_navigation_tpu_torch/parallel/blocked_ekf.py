@@ -92,7 +92,11 @@ REPLICATED = tuple(k for k in BlockedState._fields if k not in SHARDED_AXIS)
 def init(config: EKFConfig, batch: int, robot_pose=None,
          dtype=torch.float32, device=None) -> BlockedState:
     """Block-diagonal prior ``plane[p, q] = eye(N) * init_cov * eye(2)[p, q]``
-    (the JAX ``init``). ``device=None`` is the card (``device.resolve``)."""
+    (the JAX ``init``, bit for bit). ``device=None`` is the card
+    (``device.resolve``). Allocates the state and nothing else: the
+    planes are zeros with their two diagonals written in place, so a map
+    whose planes fill most of the card (16 N^2 bytes a world) still
+    starts."""
     device = resolve(device)
     N = config.num_landmarks
     B = batch
@@ -100,15 +104,19 @@ def init(config: EKFConfig, batch: int, robot_pose=None,
     mean_r = torch.zeros((B, 3), **kw)
     if robot_pose is not None:
         mean_r[:] = torch.as_tensor(robot_pose, **kw)
-    diag = torch.eye(2, **kw) * config.init_cov
-    cov_mm = torch.eye(N, **kw)[None, None] * diag[:, :, None, None]
+    cov_mm = torch.zeros((B, 2, 2, N, N), **kw)
+    diag4 = torch.zeros((B, 4, N), **kw)
+    for p in range(2):
+        torch.diagonal(cov_mm[:, p, p], dim1=-2, dim2=-1).fill_(
+            config.init_cov)
+        diag4[:, 3 * p].fill_(config.init_cov)
     return BlockedState(
         mean_r=mean_r,
         mean_m=torch.zeros((B, N, 2), **kw),
         cov_rr=torch.zeros((B, 3, 3), **kw),
         cov_rm=torch.zeros((B, 3, N, 2), **kw),
-        cov_mm=cov_mm[None].repeat(B, 1, 1, 1, 1),
-        diag4=diag.reshape(4)[None, :, None].repeat(B, 1, N),
+        cov_mm=cov_mm,
+        diag4=diag4,
         n_seen=torch.zeros(B, dtype=torch.int32, device=device),
         seen=torch.zeros((B, N), dtype=torch.bool, device=device),
     )

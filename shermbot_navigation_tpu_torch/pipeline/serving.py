@@ -106,11 +106,16 @@ class ServingEngine:
 
     ``measurements`` shorter than ``max_meas`` are padded with
     ``valid=False`` slots. The state's grid is updated in place.
-    ``device=None`` is the card (``device.resolve``)."""
+    ``device=None`` is the card (``device.resolve``). ``state`` (a
+    one-world :class:`~..parallel.blocked_ekf.BlockedState` on ``device``)
+    serves an existing blocked state as it is, without a copy: at the
+    single-card edge a second map does not fit, so this is how a map
+    built by one engine is served by another (say, known association
+    first, unknown after)."""
 
     def __init__(self, config: EKFConfig, max_meas: int, Q, R,
                  known: bool = True, robot_pose=None, dense_state=None,
-                 dtype=torch.float32, device=None, **kw):
+                 dtype=torch.float32, device=None, state=None, **kw):
         self.config = config
         self.max_meas = max_meas
         self.known = known
@@ -118,7 +123,16 @@ class ServingEngine:
         self._dtype = dtype
         self._Q = torch.as_tensor(Q, dtype=dtype, device=self.device)
         self._R = torch.as_tensor(R, dtype=dtype, device=self.device)
-        if dense_state is not None:
+        if state is not None:
+            N = config.num_landmarks
+            if dense_state is not None or tuple(state.cov_mm.shape) != (
+                    1, 2, 2, N, N):
+                raise ValueError(
+                    f"state must be one world of N={N} planes (1, 2, 2, N, "
+                    f"N), without dense_state; got "
+                    f"{tuple(state.cov_mm.shape)}")
+            self.state = state
+        elif dense_state is not None:
             st = state_from_dense(config, dense_state)
             self.state = blocked_ekf.BlockedState(
                 *(x.to(self.device) for x in st))

@@ -1,6 +1,6 @@
 """Write the JAX reference's golden fixtures for ``chip_smoke.py``.
 
-All four come from the JAX package's XLA paths (no Pallas kernel; the CPU
+All of them come from the JAX package's XLA paths (no Pallas kernel; the CPU
 backend) in f32, at full width:
 
 - ``serving_n2048_golden.json`` (``known``): config-4 serving,
@@ -46,13 +46,19 @@ backend) in f32, at full width:
   than zero; little-endian f32, base64), the number of valid detections
   and ``n_seen`` at every tick, the three poses every 10th tick, and each
   world's final ATE.
+- ``lidar20_tuned_golden.json`` (``lidar20_tuned``): the same for config
+  3's quality mode, scenario ``lidar20_tuned`` (24 slots, nearest-neighbour
+  association at chi-square gates 0.2 / 60, wrapped innovations,
+  multiplicative slip 0.95-1.0), 7 noisy worlds from other fixed keys and
+  the deterministic one (slip 0.975), with the same fields.
 
-    python tests/fixtures/make_serving_golden.py [known] [unknown] [dense] [lidar20] [loop5] [course12]
+    python tests/fixtures/make_serving_golden.py [known] [unknown] [dense] [lidar20] [loop5] [course12] [lidar20_tuned]
 
-(no argument: all six). The first three files hold a few KB: final robot
+(no argument: all seven). The first three files hold a few KB: final robot
 mean and covariance, landmark and covariance sums, and covariance entries
 at seeded sample positions; ``lidar20`` ~0.4 MB, most of it noise;
-``loop5`` ~0.1 MB; ``course12`` ~0.7 MB, most of it noise and poses.
+``loop5`` ~0.1 MB; ``course12`` ~0.7 MB, most of it noise and poses;
+``lidar20_tuned`` ~0.4 MB.
 """
 
 from __future__ import annotations
@@ -73,8 +79,10 @@ OUT = {"known": HERE / "serving_n2048_golden.json",
        "dense": HERE / "dense_n2048_golden.json",
        "lidar20": HERE / "lidar20_golden.json",
        "loop5": HERE / "loop5_golden.json",
-       "course12": HERE / "course12_golden.json"}
+       "course12": HERE / "course12_golden.json",
+       "lidar20_tuned": HERE / "lidar20_tuned_golden.json"}
 LIDAR_KEYS_SEED = 20      # PRNGKey(seed) split into the noisy worlds' keys
+LIDAR_TUNED_KEYS_SEED = 21
 LIDAR_NOISY = 7
 LIDAR_POSE_EVERY = 10
 LOOP5_KEYS_SEED, LOOP5_WORLDS, LOOP5_POSE_EVERY = 0, 4, 5
@@ -244,14 +252,23 @@ def _lidar_run(jax, jnp, np, scn, keys):
 
 
 def lidar20_golden(jax, jnp, np):
+    return _lidar_golden(jax, jnp, np, "lidar20_full", LIDAR_KEYS_SEED)
+
+
+def lidar20_tuned_golden(jax, jnp, np):
+    return _lidar_golden(jax, jnp, np, "lidar20_tuned",
+                         LIDAR_TUNED_KEYS_SEED)
+
+
+def _lidar_golden(jax, jnp, np, name, seed):
     import base64
     import dataclasses
     sys.path.insert(0, str(HERE.parent))
     from _torch_parity import replay_tick_noise
     from shermbot_navigation_tpu.pipeline.config import get_scenario
-    scn = get_scenario("lidar20_full")
+    scn = get_scenario(name)
     det = dataclasses.replace(scn, slip_min=0.975, slip_max=0.975)
-    keys = jax.random.split(jax.random.PRNGKey(LIDAR_KEYS_SEED), LIDAR_NOISY)
+    keys = jax.random.split(jax.random.PRNGKey(seed), LIDAR_NOISY)
     outs, n_det = _lidar_run(jax, jnp, np, scn, keys)
     douts, dn_det = _lidar_run(jax, jnp, np, det, keys[:1])
     outs = {k: np.concatenate([outs[k], douts[k]]) for k in outs}
@@ -265,10 +282,10 @@ def lidar20_golden(jax, jnp, np):
     ev = slice(LIDAR_POSE_EVERY - 1, None, LIDAR_POSE_EVERY)
     return {
         "source": "shermbot_navigation_tpu.pipeline.driver."
-                  "run_scenario_batch_lanes(lidar20_full), XLA, CPU, "
+                  f"run_scenario_batch_lanes({name}), XLA, CPU, "
                   "float32; ATE over all 600 ticks, positions [x, y]",
-        "scenario": "lidar20_full", "T": scn.steps, "B": LIDAR_NOISY + 1,
-        "noisy_worlds": LIDAR_NOISY, "keys_seed": LIDAR_KEYS_SEED,
+        "scenario": name, "T": scn.steps, "B": LIDAR_NOISY + 1,
+        "noisy_worlds": LIDAR_NOISY, "keys_seed": seed,
         "deterministic_world": "last; slip_min = slip_max = 0.975, i.e. "
                                "every slip normal zero",
         "slip_normals_shape": list(slip.shape),
@@ -371,7 +388,8 @@ def main(which):
     import numpy as np
     makers = {"known": known_golden, "unknown": unknown_golden,
               "dense": dense_golden, "lidar20": lidar20_golden,
-              "loop5": loop5_golden, "course12": course12_golden}
+              "loop5": loop5_golden, "course12": course12_golden,
+              "lidar20_tuned": lidar20_tuned_golden}
     for name in which:
         t0 = time.perf_counter()
         golden = makers[name](jax, jnp, np)
@@ -381,4 +399,4 @@ def main(which):
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ["known", "unknown", "dense", "lidar20", "loop5",
-                          "course12"])
+                          "course12", "lidar20_tuned"])

@@ -380,3 +380,56 @@ def test_launch_plans_take_worlds():
                            max_active=active)["cluster"] == 4
     with pytest.raises(ValueError, match="batch"):
         tsq.launch_plan(2048, 8, batch=0)
+
+
+@pytest.mark.parametrize("pose", [None, [0.3, -1.5, 2.25]],
+                         ids=["origin", "pose"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_init_equals_jax_bit_for_bit(dtype, pose):
+    """``blocked_ekf.init`` at N=64, B=2 against the JAX ``init``: every
+    field equal bit for bit, dtype for dtype (the INT_MAX prior on the
+    planes' two diagonals and in ``diag4``, zeros elsewhere)."""
+    n, b = 64, 2
+    want = jblocked.init(jekf.EKFConfig(num_landmarks=n), b, robot_pose=pose,
+                         dtype=getattr(jnp, dtype))
+    got = tblocked.init(tekf.EKFConfig(num_landmarks=n), b, robot_pose=pose,
+                        dtype=getattr(torch, dtype), device="cpu")
+    for f in tblocked.BlockedState._fields:
+        w = np.asarray(getattr(want, f))
+        g = getattr(got, f).numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, f
+        np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8),
+                                      err_msg=f)
+
+
+class _Allocations(TorchDispatchMode):
+    """Bytes of every storage the dispatched ops create (views and
+    in-place ops create none); the outputs are kept alive so no address is
+    reused and counted once for two allocations."""
+
+    def __init__(self):
+        super().__init__()
+        self.storages, self._keep = {}, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                s = t.untyped_storage()
+                self.storages.setdefault(s.data_ptr(), s.nbytes())
+                self._keep.append(t)
+        return out
+
+
+def test_init_allocates_only_the_state():
+    """``blocked_ekf.init`` creates no temporary of the grid's size: all it
+    allocates is within 1% of the state's own bytes (an ``eye(N)``, a
+    broadcast product or a ``repeat`` of the planes would add 0.1-1.0x).
+    The card's peak allocation is held the same way by
+    ``tests/test_torch_cuda.py::test_init_peak_memory_is_the_state``."""
+    cfg = tekf.EKFConfig(num_landmarks=64)
+    with _Allocations() as mode:
+        st = tblocked.init(cfg, 2, robot_pose=[0.0, 1.0, 2.0], device="cpu")
+    state_bytes = sum(x.untyped_storage().nbytes() for x in st)
+    assert state_bytes >= 16 * 64 * 64 * 2
+    assert sum(mode.storages.values()) <= 1.01 * state_bytes

@@ -9,6 +9,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from shermbot_navigation_tpu_torch import bench
@@ -98,3 +99,26 @@ def test_bench_entry_prints_the_bench_keys(capsys):
         assert r["value"] > 0 and r["baseline_ticks_per_sec"] > 0
         assert abs(r["cpp_ate_m"] - 0.051976) < 1e-6
         assert np.isfinite(r["ate_m"])
+
+
+@pytest.mark.parametrize("scenario", ["course12_tuned", "lidar20_tuned"])
+def test_bench_entry_prints_the_tuned_rows(capsys, scenario):
+    """The quality modes on the bench entry (CPU, tiny size): no C++ run
+    (the reference cannot express nearest-neighbour gates), so its fields
+    are null, and the row adds the diverged fraction and the median NEES
+    beside the median-world ATE."""
+    assert bench.main(["--device", "cpu", "--batch", "2", "--steps", "3",
+                       "--scenario", scenario]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    r = json.loads(lines[0])
+    assert set(r) == {"metric", "value", "unit", "vs_baseline",
+                      "baseline_ticks_per_sec", "baseline_spread", "batch",
+                      "scenario", "engine", "ate_m", "cpp_ate_m",
+                      "seconds_per_batch_run", "device", "execution",
+                      "diverged_fraction", "median_nees"}
+    assert (r["scenario"], r["batch"], r["engine"]) == (scenario, 2, "lanes")
+    assert all(r[k] is None for k in ("vs_baseline", "baseline_ticks_per_sec",
+                                      "baseline_spread", "cpp_ate_m"))
+    assert r["value"] > 0 and r["diverged_fraction"] == 0.0
+    assert np.isfinite(r["ate_m"]) and np.isfinite(r["median_nees"])

@@ -36,7 +36,10 @@ worlds (one launch through ``torch.func.vmap``) gives each world the bits
 of its own launch; the guarded deferred tick never waits for the device
 and equals the unguarded one bit for bit; the staged pipeline on two
 streams equals its sequential oracle (poses 1e-6 / 1e-4, as
-``tests/test_staged.py``).
+``tests/test_staged.py``). ``blocked_ekf.init`` allocates the state and
+nothing more (peak within 1% of its bytes), and ``lidar20_tuned`` (nearest
+association) runs kernel 4 once a tick on both batched engines, which make
+the same decisions (poses within 1e-4 over 20 f32 ticks).
 """
 
 import json
@@ -1032,3 +1035,48 @@ def test_staged_rollout_on_two_streams_equals_its_oracle(dev):
                                atol=1e-6)
     torch.testing.assert_close(got.slam_pose, ref.slam_pose, rtol=0,
                                atol=1e-4)
+
+
+def test_init_peak_memory_is_the_state(dev):
+    """``blocked_ekf.init`` at N=8192 (planes of 1.07 GB) peaks at the
+    state's own bytes: no ``eye(N)``, broadcast product or copy of the
+    planes on the way (at N=65536 those would not fit on an 80 GB card)."""
+    cfg = EKFConfig(num_landmarks=8192)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    st = blocked_ekf.init(cfg, 1, robot_pose=[0.0, 0.0, 0.0], device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    state_bytes = sum(x.untyped_storage().nbytes() for x in st)
+    assert state_bytes >= 16 * 8192 ** 2
+    assert peak <= 1.01 * state_bytes, (peak, state_bytes)
+    prior = torch.tensor(cfg.init_cov, dtype=torch.float32)
+    assert torch.equal(st.cov_mm[0, 1, 1, 8191, 8191].cpu(), prior)
+
+
+def test_lidar20_tuned_runs_kernel_4_on_both_engines(dev):
+    """Config 3's quality mode (``lidar20_tuned``: nearest association,
+    chi-square gates, wrapped innovations, multiplicative slip) on the
+    lanes engine and under ``torch.func.vmap``, on the same noise: the
+    segmented perception launches the fit kernel once a tick on each, the
+    two make the same decisions and their poses agree within 1e-4."""
+    scn = get_scenario("lidar20_tuned")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    B, T = 4, 20
+    seq = [driver.draw_noise(scn, gen, (B,)) for _ in range(T)]
+    noise = type(seq[0])(*(torch.stack(f) for f in zip(*seq)))
+    outs = {}
+    for name, run in (("lanes", driver.run_scenario_batch_lanes),
+                      ("vmapped", driver.run_scenario_batch)):
+        cfk.fit_tail.launches = 0
+        outs[name] = run(scn, noise, B, steps=T, device=dev)
+        assert cfk.fit_tail.launches == T, name
+        assert bool(torch.isfinite(outs[name].slam_pose).all()), name
+    assert torch.equal(outs["lanes"].n_seen, outs["vmapped"].n_seen)
+    assert int(outs["lanes"].n_seen[:, -1].min()) >= 5
+    err = float((outs["lanes"].slam_pose - outs["vmapped"].slam_pose).abs()
+                .max())
+    assert err <= 1e-4, err

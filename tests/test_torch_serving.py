@@ -348,3 +348,33 @@ def test_port_imports_no_jax():
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_engine_serves_a_given_state_without_a_copy():
+    """``ServingEngine(state=...)`` serves another engine's blocked state
+    as it is (the single-card edge has no room for a second map): a known
+    engine builds the map, an unknown engine takes its state without a
+    copy and ticks on it, equal to a copy run through its own engine from
+    that state; a state of another size, or beside ``dense_state``,
+    raises."""
+    cfg = tekf.EKFConfig(num_landmarks=N)
+    eng = tserving.ServingEngine(cfg, max_meas=M, Q=Q3, R=R2,
+                                 robot_pose=[0.0, 0.0, 0.0],
+                                 dtype=torch.float64, device="cpu")
+    eng.tick([0.0, 0.0, 0.0], [[0.7, 0.5], [0.9, -1.0]], ids=[0, 1])
+    copy = tblocked_ekf.BlockedState(*(x.clone() for x in eng.state))
+    unk = tserving.ServingEngine(cfg, max_meas=M, Q=Q3, R=R2, known=False,
+                                 dtype=torch.float64, device="cpu",
+                                 state=eng.state)
+    assert unk.state.cov_mm.data_ptr() == eng.state.cov_mm.data_ptr()
+    ref = tserving.ServingEngine(cfg, max_meas=M, Q=Q3, R=R2, known=False,
+                                 dtype=torch.float64, device="cpu",
+                                 state=copy)
+    for e in (unk, ref):
+        e.tick([0.01, 0.1, 0.0], [[0.7, 0.45], [2.0, 2.0]])
+    assert unk.n_seen == 3
+    assert_state_close(unk.state, jax_to_numpy(ref.state), 0.0)
+    with pytest.raises(ValueError, match="one world"):
+        tserving.ServingEngine(tekf.EKFConfig(num_landmarks=N + 1), M, Q3,
+                               R2, dtype=torch.float64, device="cpu",
+                               state=eng.state)
