@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from ...utils import tracing
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -79,7 +81,9 @@ def build() -> dict:
     and load every kernel library. Returns ``{"lib", "paths", "seconds",
     "ptxas"}``: ``lib`` has one attribute per C entry point, ``seconds``
     is the wall time of the parallel build (0 and empty ``ptxas`` when all
-    were on disk)."""
+    were on disk). Adds the seconds of the whole call, build and load, to
+    the counter ``kernels.load_s`` (``utils/tracing.counters()``)."""
+    t_call = time.perf_counter()
     stems = sorted({stem for stem, _ in SIGNATURES.values()})
     paths = {s: BUILD_DIR / f"lib{s}_{_key(CSRC / f'{s}.cu')}.so"
              for s in stems}
@@ -117,6 +121,7 @@ def build() -> dict:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         entries[name] = fn
+    tracing.count("kernels.load_s", time.perf_counter() - t_call)
     return {"lib": types.SimpleNamespace(**entries),
             "paths": [str(p) for p in paths.values()], "seconds": seconds,
             "ptxas": "".join(ptxas)}

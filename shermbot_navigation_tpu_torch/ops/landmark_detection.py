@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.tracing import stage
 from . import se2
 from .circle_fit import fit_circles
 from .clustering import (SPLIT_THRESHOLD, _scan_membership, classify_clusters,
@@ -160,8 +161,9 @@ def _detect_segmented(ranges, min_range, max_range, max_clusters: int,
     mom, cx, cy, zbar, count, valid, is_circle = _segment_fit_inputs(
         ranges, min_range, max_range, max_clusters, max_points,
         std_threshold_deg, margins)
-    center, radius, okf = cfk.fit_tail(mom, cx, cy, zbar, count, valid,
-                                       use_kernel=use_kernel)
+    with stage("perception.circle_fit", ranges.device):
+        center, radius, okf = cfk.fit_tail(mom, cx, cy, zbar, count, valid,
+                                           use_kernel=use_kernel)
     ok = is_circle & okf & (radius <= max_radius)
     return _compact(center, ok)
 

@@ -56,6 +56,7 @@ import torch
 from ..device import resolve
 from ..models.ekf_slam import EKFConfig, _inv2x2, _motion_delta
 from ..ops import se2
+from ..utils.tracing import stage
 
 INT_MAX = torch.iinfo(torch.int32).max
 
@@ -762,11 +763,12 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
          Kb, HSb, CRb, gb, kb) = outs
         if decisions is not None:
             decisions.append((kb, gb))
+        operands = grid_operands(Kb, HSb, CRb, gb, kb,
+                                 mesh if S > 1 else None)
         # every local shard's and world's planes: one launch a tick
-        cov = fused_grid_update(
-            cov_mm0.view(-1, 2, 2, Nl, N),
-            *grid_operands(Kb, HSb, CRb, gb, kb, mesh if S > 1 else None),
-            use_kernel=grid_kernel)
+        with stage("blocked.grid_pass", device):
+            cov = fused_grid_update(cov_mm0.view(-1, 2, 2, Nl, N), *operands,
+                                    use_kernel=grid_kernel)
         return _replicas_in(BlockedState(
             mean_r=mr_o,
             mean_m=mm2_o.transpose(-1, -2).contiguous(),

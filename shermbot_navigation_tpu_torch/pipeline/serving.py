@@ -21,6 +21,7 @@ import torch
 from ..device import resolve
 from ..models.ekf_slam import EKFConfig, EKFState
 from ..parallel import blocked_ekf
+from ..utils.tracing import stage
 
 def state_from_dense(config: EKFConfig, st: EKFState
                      ) -> blocked_ekf.BlockedState:
@@ -146,28 +147,30 @@ class ServingEngine:
     def tick(self, twist, zs, valid=None, ids=None):
         """One tick; ``ids`` is required with known association and
         ignored without it."""
-        M = self.max_meas
-        dev = self.device
-        zs = torch.as_tensor(zs, dtype=self._dtype, device=dev).reshape(-1, 2)
-        m = zs.shape[0]
-        if m > M:
-            raise ValueError(f"{m} measurements > max_meas {M}")
-        pad = M - m
-        if valid is None:
-            valid = torch.ones(m, dtype=torch.bool, device=dev)
-        valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
-        zs = torch.cat([zs, zs.new_zeros((pad, 2))])
-        valid = torch.cat([valid, valid.new_zeros(pad)])
-        tw = torch.as_tensor(twist, dtype=self._dtype, device=dev)
-        args = ()
-        if self.known:
-            if ids is None:
-                raise ValueError("known-association serving needs ids")
-            ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
-            args = (torch.cat([ids, ids.new_zeros(pad)]),)
-        self.state = self._tick(self.state, tw, zs, valid, *args, self._Q,
-                                self._R)
-        return self.state
+        with stage("serving.tick"):
+            M = self.max_meas
+            dev = self.device
+            zs = torch.as_tensor(zs, dtype=self._dtype,
+                                 device=dev).reshape(-1, 2)
+            m = zs.shape[0]
+            if m > M:
+                raise ValueError(f"{m} measurements > max_meas {M}")
+            pad = M - m
+            if valid is None:
+                valid = torch.ones(m, dtype=torch.bool, device=dev)
+            valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+            zs = torch.cat([zs, zs.new_zeros((pad, 2))])
+            valid = torch.cat([valid, valid.new_zeros(pad)])
+            tw = torch.as_tensor(twist, dtype=self._dtype, device=dev)
+            args = ()
+            if self.known:
+                if ids is None:
+                    raise ValueError("known-association serving needs ids")
+                ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+                args = (torch.cat([ids, ids.new_zeros(pad)]),)
+            self.state = self._tick(self.state, tw, zs, valid, *args,
+                                    self._Q, self._R)
+            return self.state
 
     @property
     def pose(self):

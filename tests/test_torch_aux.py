@@ -40,8 +40,7 @@ from shermbot_navigation_tpu_torch.pipeline.driver import TickOutput
 from shermbot_navigation_tpu_torch.sim import fake_turtle as tft
 from shermbot_navigation_tpu_torch.sim import turtle_rect as trect
 from shermbot_navigation_tpu_torch.utils import robot as trobot
-from shermbot_navigation_tpu_torch.utils.tracing import (MetricsLog, stage,
-                                                          time_fn, trace)
+from shermbot_navigation_tpu_torch.utils import tracing
 
 ROOT = Path(__file__).resolve().parents[1]
 FRAMES_INPUT = "90 0 1\n90 1 0\n1 1\na\n1 1 1\na\n"   # tests/test_cli.py
@@ -110,28 +109,18 @@ def test_rectangle_run_matches_jax_and_visits_the_corners():
     assert tctrl.fsm.dtype == torch.int32
 
 
-def test_time_fn_and_trace(tmp_path):
-    f = lambda x: x * 2 + 1
-    out = time_fn(f, torch.ones(16, 16), iters=3)
-    assert out["best_s"] > 0 and out["iters"] == 3
-    assert out["best_s"] <= out["median_s"] + 1e-9
-    with trace(str(tmp_path / "prof")):
-        with stage("filter"):
-            f(torch.ones(4))
+def test_trace_exports_program_spans(tmp_path):
+    """Under ``trace``, a span of the program is written to the exported
+    trace and is also among the recorded spans."""
+    tracing.clear()
+    with tracing.trace(str(tmp_path / "prof")):
+        with tracing.stage("aux.filter"):
+            torch.ones(4) * 2 + 1
     text = (tmp_path / "prof" / "trace.json").read_text()
-    assert "filter" in text
-
-
-def test_metrics_log(tmp_path):
-    path = str(tmp_path / "m.jsonl")
-    log = MetricsLog(path)
-    log.log(step=1, ate=torch.tensor(0.5, dtype=torch.float32))
-    log.log(step=2, ate=np.float32(0.25), note="hello")
-    log.close()
-    lines = [json.loads(l) for l in open(path)]
-    assert lines[0]["step"] == 1 and abs(lines[0]["ate"] - 0.5) < 1e-9
-    assert isinstance(lines[0]["ate"], float)
-    assert lines[1]["note"] == "hello" and lines[1]["ate"] == 0.25
+    events = json.loads(text)["traceEvents"]
+    assert any(e.get("name") == "aux.filter" for e in events)
+    assert [s.name for s in tracing.spans()] == ["aux.filter"]
+    tracing.clear()
 
 
 def test_plot_and_csv_write_what_jax_writes(tmp_path):
