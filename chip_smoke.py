@@ -21,7 +21,7 @@ It imports nothing of JAX. Phases, one JSON line each:
 
 1. device  -- card name and power limit (nvidia-smi), torch/CUDA versions,
               the TF32 switches (all off);
-2. build   -- the four CUDA sources under ``csrc/`` built, one ``nvcc``
+2. build   -- the five CUDA sources under ``csrc/`` built, one ``nvcc``
               each, all at once (seconds; registers, shared memory and
               spill bytes of every kernel from ptxas);
 3. grid_update against its plain version at N=2048, M=8 on the card;
@@ -85,7 +85,13 @@ It imports nothing of JAX. Phases, one JSON line each:
    deterministic world's ATE within 1e-3 m; median-world ATE, diverged
    fraction and median ``n_seen`` over all worlds; the smallest margins of
    a split, a circle and a gate decision to their thresholds; the tail
-   kernel's counter equals the ticks run (path A's fit);
+   kernel's counter and kernel 5's (the filter's tick) each equal the
+   ticks run. Then (phase config3_ekf_tick) kernel 5 against the plain
+   tick (``ekf_batch.step``) at B=1024 for EKF_TICKS ticks of the same
+   noise: two filters fed the same real detections, every world's state
+   and smallest gate margin equal bit for bit after every tick except
+   where a gate margin came within EKF_TIE_REL; ms a call, device ms and
+   plain ms on the last tick's inputs beside the byte bound;
 14. perception_buffered -- on every tick's (1024, 360) scans of phase 13,
    ``detect_landmarks(segmented=False)`` through the whole-fit kernel:
    ``valid`` equal to phase 13's segmented detections (every tick) and
@@ -120,8 +126,9 @@ It imports nothing of JAX. Phases, one JSON line each:
    scalar chain), each term timed apart from the kernel by its probe
    kernel; beside it the kernel's own phase clock, a split of its time.
 17. configs12 -- the main path of the port's bench entry
-   (``python -m shermbot_navigation_tpu_torch.bench``), which launches none
-   of the four kernels (every counter is read and must stay 0), f32, 600
+   (``python -m shermbot_navigation_tpu_torch.bench``), which launches
+   kernel 5 (the filter's tick) once a tick on the lanes engine and no
+   other kernel (every counter is read), f32, 600
    ticks: (a) config 1 at B=16384 on the lanes engine, every world's ATE
    within 1e-4 m of ``tests/fixtures/loop5_golden.json``'s JAX f32 ATE
    and of the C++ ``--deterministic`` ATE (``native/baseline``, built with
@@ -234,7 +241,8 @@ It imports nothing of JAX. Phases, one JSON line each:
    association, chi-square gates, wrapped innovations, multiplicative
    slip) through ``run_scenario_batch_lanes`` at B3 worlds for its 600
    ticks, every counter set to 0 just before and read after (kernel 4's
-   tail once a tick, nothing else): the first 8 worlds on the draws of
+   tail and kernel 5 once a tick each, nothing else): the first 8 worlds
+   on the draws of
    ``tests/fixtures/lidar20_tuned_golden.json`` held to the JAX f32 run
    (bounds and reasons beside LIDAR_TUNED_TOL), no world diverged,
    median-world ATE, diverged fraction, median NEES and world x ticks /
@@ -292,6 +300,7 @@ from shermbot_navigation_tpu_torch.ops.kernels import _build
 from shermbot_navigation_tpu_torch.ops.kernels import circle_fit as cfk
 from shermbot_navigation_tpu_torch.ops.kernels import circle_moments as cmk
 from shermbot_navigation_tpu_torch.ops.kernels import cov_update as cu
+from shermbot_navigation_tpu_torch.ops.kernels import ekf_tick
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as gu
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as sq
 from shermbot_navigation_tpu_torch.ops.landmark_detection import (
@@ -320,6 +329,9 @@ T_DENSE = 32
 B3 = 1024          # config 3's worlds: the batch the reference's programs use
 T_CONFIG3 = 600    # ticks of lidar20_full (the scenario's own length)
 C3, P3 = 16, 64    # cluster slots a world, point rows a cluster
+EKF_TICKS = 100    # ticks of kernel 5 held to the plain tick at B3 worlds
+EKF_TIE_REL = 1e-4  # a world whose gate margin came this close is excused
+# (~14% of the worlds over the 100 ticks; each is reported all the same)
 SCALING_SIZES = (2048, 8192, 16384)   # map sizes of the kernel_scaling phase
 SCALING_SEEN = 1792    # slots its short run sweeps (phase 4's: N - N/8)
 # kernel_scaling holds the scan to its plain version twice, on two states
@@ -729,6 +741,13 @@ KERNELS = {
     "cov_update_batched": {
         "source": f"{PKG}/csrc/cov_update.cu",
         "replaces": "shermbot_navigation_tpu/ops/pallas/cov_update.py:70"},
+    # kernel 5, the port's own: the filter's whole tick, where the JAX
+    # package leaves models/ekf_batch.step to XLA (phase 13)
+    "ekf_tick": {
+        "source": f"{PKG}/csrc/ekf_tick.cu",
+        "replaces": "none (the port's own kernel): "
+                    f"{PKG}/models/ekf_batch.py step, "
+                    "known_association_step"},
     # kernel 4's tail on lidar20_tuned's segmented perception (phase 22)
     "circle_fit_tail_tuned": {
         "source": f"{PKG}/csrc/circle_fit.cu",
@@ -1770,7 +1789,7 @@ def config3_noise(scn, dev, gslip, T, seed=11):
 def reset_counters():
     for fn in (gu.fused_grid_update, sq.deferred_seq_scan,
                cu.fused_kalman_update, cmk.circle_moments_raw,
-               cfk.circle_fit_raw, cfk.fit_tail):
+               cfk.circle_fit_raw, cfk.fit_tail, ekf_tick.step):
         fn.launches = 0
 
 
@@ -1784,7 +1803,14 @@ def kernel_launches():
     """Every kernel's launch counter (the two scan branches share one)."""
     return {"grid_update": gu.fused_grid_update.launches,
             "seq_scan": sq.deferred_seq_scan.launches,
-            "cov_update": cu.fused_kalman_update.launches, **fit_launches()}
+            "cov_update": cu.fused_kalman_update.launches,
+            "ekf_tick": ekf_tick.step.launches, **fit_launches()}
+
+
+def filter_launches_only(launches, T):
+    """The counts a lanes run of T ticks on the fake sensor (configs 1
+    and 2) must read: the filter's tick once a tick, nothing else."""
+    return {k: T if k == "ekf_tick" else 0 for k in launches}
 
 
 def phase_config3(dev, scn):
@@ -1812,6 +1838,7 @@ def phase_config3(dev, scn):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fit_launches()
+    filter_launches = ekf_tick.step.launches
     del noise
 
     finite = all(bool(torch.isfinite(x).all()) for x in outs
@@ -1856,7 +1883,7 @@ def phase_config3(dev, scn):
     last_seen = outs.n_seen[:, -1]
     emit(phase="config3", scenario=scn.name, B=B3, T=T, seconds=seconds,
          ms_per_tick=seconds * 1e3 / T, finite=finite,
-         launches=launches, fixture=fixture,
+         launches=dict(launches, ekf_tick=filter_launches), fixture=fixture,
          tol=CONFIG3_TOL,
          all_worlds={"median_ate": float(ate.median()),
                      "diverged_fraction": float((ate > 1.0).double().mean()),
@@ -1873,6 +1900,9 @@ def phase_config3(dev, scn):
     if launches != {"circle_fit": 0, "circle_fit_tail": T,
                     "circle_moments": 0}:
         fail(f"path A launched {launches}, want circle_fit_tail {T}")
+    if filter_launches != T:
+        fail(f"config 3's filter launched kernel 5 {filter_launches} times "
+             f"in {T} ticks, want once a tick")
     tol = CONFIG3_TOL
     if not fixture["n_detections_equal_early"]:
         fail(f"fixture worlds: detections per tick differ from the JAX run "
@@ -1899,7 +1929,108 @@ def phase_config3(dev, scn):
                  f"the JAX f32 value {golden['ate'][det_world]}")
         if not max(ate_err) <= tol["ate"]:
             fail(f"fixture worlds' ATE off by {ate_err}")
-    return scans, zs_all, valid_all, launches["circle_fit_tail"]
+    return (scans, zs_all, valid_all, launches["circle_fit_tail"],
+            filter_launches)
+
+
+def ekf_tick_work(D, M, B):
+    """(bytes, f32 operations) of kernel 5's tick of B worlds: the state
+    (covariance, mean, n_seen, seen) read and written once, the tick's
+    twist, measurements and valid flags read once; the operations an
+    upper count, every measurement acting: the N slots' distances (~150
+    each), SHt and K (~28 D), the symmetrized rank-2 downdate (~8 D^2),
+    and the predict's strips (~18 D)."""
+    N = (D - 3) // 2
+    nbytes = B * (2 * 4 * D * D + 2 * 4 * D + 2 * N + 2 * 4 + 12 + 8 * M
+                  + M)
+    flops = B * (18 * D + M * (150 * N + 28 * D + 8 * D * D))
+    return nbytes, flops
+
+
+def phase_ekf_tick(dev, scn):
+    """Kernel 5 against its plain version (``ekf_batch.step``) at B3
+    worlds: two filters, each on its own state, fed the same EKF_TICKS
+    ticks of real sim and perception output (phase 13's noise); after
+    every tick ``n_seen``, ``seen``, mean and covariance equal bit for
+    bit, and the kernel's smallest gate margin of the tick equal to the
+    ``amin`` of the plain version's per-measurement margins, in every
+    world whose margin never came within EKF_TIE_REL of a gate. Then ms
+    a call (CUDA events), the kernel's device ms (``torch.profiler``) and
+    the plain version's ms on the last tick's inputs, beside the bound.
+    Returns (largest difference in untied worlds, the kernels line's
+    row)."""
+    _, gslip = lidar_fixture()
+    T = EKF_TICKS
+    params = scn.world_params(device=dev)
+    ecfg = scn.ekf_config()
+    Q, R = scn.noise_matrices(device=dev)
+    src = driver.NoiseSource(scn, config3_noise(scn, dev, gslip, T), (B3,),
+                             torch.float32, dev)
+    cmds = driver.command_twist(scn, T, device=dev)
+    sense = driver.init_sense(params, torch.float32, (B3,))
+    plain = fused = ekf_batch.init(ecfg, B3, device=dev)
+    tied = torch.zeros(B3, dtype=torch.bool, device=dev)
+    parted = {}
+    reset_counters()
+    for t in range(T):
+        sense, twist, zs, valid, _ = driver.sense_tick(
+            scn, params, sense, cmds[t], src.tick(t))
+        pm, fm = [], []
+        plain = ekf_tick.step(ecfg, plain, twist, zs, valid, Q, R, None, pm,
+                              use_kernel=False)
+        fused = ekf_tick.step(ecfg, fused, twist, zs, valid, Q, R, None, fm,
+                              use_kernel=True)
+        want = torch.stack(pm).amin(0)
+        tied |= want < EKF_TIE_REL
+        keep = ~tied
+        pairs = {k: (getattr(plain, k)[..., keep], getattr(fused, k)[..., keep])
+                 for k in ("mean", "cov", "n_seen", "seen")}
+        pairs["gate_margin"] = (want[keep], fm[0][keep])
+        for k, (a, b) in pairs.items():
+            if k not in parted and not torch.equal(a, b):
+                worlds = (a != b).reshape(-1, a.shape[-1]).any(0)
+                parted[k] = {"tick": t, "worlds": int(worlds.sum())}
+    launches = ekf_tick.step.launches
+    keep = ~tied
+    err = max(float((getattr(plain, k) - getattr(fused, k))[..., keep]
+                    .abs().max()) for k in ("mean", "cov"))
+    err_all = max(float((getattr(plain, k) - getattr(fused, k))
+                        .abs().max()) for k in ("mean", "cov"))
+    n_seen_all = int((plain.n_seen != fused.n_seen).sum())
+
+    st = fused
+    kernel = lambda: ekf_tick.step(ecfg, st, twist, zs, valid, Q, R,
+                                   use_kernel=True)
+    plain_fn = lambda: ekf_tick.step(ecfg, st, twist, zs, valid, Q, R,
+                                     use_kernel=False)
+    row = {"ms": cuda_ms(kernel, 50), "plain_ms": cuda_ms(plain_fn, 2, 3),
+           "device_ms": profiled_device_ms(kernel, "ekf_tick_kernel", 20),
+           **bound_of(*ekf_tick_work(ecfg.dim, C3, B3))}
+    d = row["device_ms"]
+    row["share_of_bound"] = row["bound_ms"] / d if d else None
+    emit(phase="config3_ekf_tick", scenario=scn.name, B=B3, T=T,
+         launches=launches, tied_worlds=int(tied.sum()),
+         tie_rel=EKF_TIE_REL, first_parting_untied=parted,
+         max_abs_err_untied=err, max_abs_err_all_worlds=err_all,
+         n_seen_differs_all_worlds=n_seen_all,
+         n_seen_median=float(fused.n_seen.float().median()),
+         detections_last_tick=float(valid.sum(-1).float().mean()),
+         per_call=row,
+         note="two filters fed the same ticks, the plain tick's margins "
+              "deciding the ties; ms: CUDA events over wrapper calls, "
+              "median of 5, on the last tick's inputs; device_ms: the "
+              "kernel alone by torch.profiler; plain_ms: ekf_batch.step "
+              "on the card; bound: bytes read and written once over "
+              "3.35 TB/s against the operations' upper count over the f32 "
+              "rate")
+    if launches != T:
+        fail(f"kernel 5 launched {launches} times in {T} ticks")
+    if parted:
+        fail(f"kernel 5 against the plain tick, untied worlds: {parted}")
+    if int(tied.sum()) > B3 // 2:
+        fail(f"{int(tied.sum())} of {B3} worlds came within {EKF_TIE_REL} "
+             f"of a gate: the check holds fewer than half of them")
+    return err, row
 
 
 def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
@@ -2255,8 +2386,8 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
             zs = ekf_slam.cartesian2polar(det.positions[..., 0],
                                           det.positions[..., 1])
             t = lap("perception", t)
-            st["filt"] = ekf_batch.step(ecfg, st["filt"], twist, zs,
-                                        det.valid, Q, R)
+            st["filt"] = ekf_tick.step(ecfg, st["filt"], twist, zs,
+                                       det.valid, Q, R)
             t = lap("filter", t)
         return (t - start) * 1e3 / block
 
@@ -2679,8 +2810,9 @@ def phase_config1(dev):
               "seeded generator")
     if not all_finite(outs):
         fail("config 1 produced non-finite values")
-    if any(launches.values()):
-        fail(f"config 1 launched {launches}: its path has no kernel")
+    if launches != filter_launches_only(launches, T):
+        fail(f"config 1 launched {launches}: its path has kernel 5 once a "
+             f"tick and no other kernel")
     if not n_seen_equal:
         fail("config 1: n_seen differs from the JAX run")
     if not pose_err <= CONFIGS12_POSE_TOL:
@@ -2823,8 +2955,9 @@ def phase_config2(dev):
               "decisions of the ticks just before it")
     if not all_finite(outs):
         fail("config 2 produced non-finite values")
-    if any(launches.values()):
-        fail(f"config 2 launched {launches}: its path has no kernel")
+    if launches != filter_launches_only(launches, T):
+        fail(f"config 2 launched {launches}: its path has kernel 5 once a "
+             f"tick and no other kernel")
     if not all(seen_eq):
         fail(f"config 2: n_seen differs from the JAX run in fixture worlds "
              f"{[w for w in range(nfix) if not seen_eq[w]]}")
@@ -4493,9 +4626,10 @@ def phase_lidar20_tuned(dev):
     if not finite or diverged:
         fail(f"lidar20_tuned: finite {finite}, {diverged} of {B3} worlds "
              f"diverged")
-    if launches != {k: T if k == "circle_fit_tail" else 0
+    if launches != {k: T if k in ("circle_fit_tail", "ekf_tick") else 0
                     for k in launches}:
-        fail(f"lidar20_tuned launched {launches}, want the tail {T} times")
+        fail(f"lidar20_tuned launched {launches}, want the tail and kernel "
+             f"5 {T} times each")
     if bad:
         fail(f"lidar20_tuned's fixture worlds against the JAX run: {bad}")
 
@@ -4936,7 +5070,9 @@ def run_phases(dev, card, entry_proc, ptxas) -> int:
     cm_ops, cm_err, scan, sets = phase_circle_moments(dev, scn)
     fit_err, tail_err = phase_circle_fit(dev, scn, scan, sets)
     del scan, sets
-    scans, zs_all, valid_all, tail_launches = phase_config3(dev, scn)
+    scans, zs_all, valid_all, tail_launches, filter_launches = \
+        phase_config3(dev, scn)
+    ekf_err, ekf_row = phase_ekf_tick(dev, scn)
     fit_launches_b, cm_launches = phase_perception_buffered(
         dev, scn, scans, zs_all, valid_all)
     del scans, zs_all, valid_all
@@ -4999,6 +5135,14 @@ def run_phases(dev, card, entry_proc, ptxas) -> int:
     paths[key] = (f"the dense engine ('on', D={D_PAD}) under "
                   f"torch.func.vmap for {B21} worlds: one launch an update "
                   f"({T21_DENSE} ticks of {M})")
+    key = "ekf_tick"
+    launches[key], errs[key] = filter_launches, ekf_err
+    per_call[key] = bounds[key] = ekf_row
+    lib[key] = None
+    paths[key] = (f"config 3's filter (path A, phase 13): one launch a tick "
+                  f"for all {B3} worlds; held to ekf_batch.step for "
+                  f"{EKF_TICKS} ticks and timed on the last tick's inputs "
+                  f"(phase config3_ekf_tick)")
     key = "circle_fit_tail_tuned"
     launches[key], errs[key] = tuned_launches, tuned_row["max_abs_err"]
     per_call[key] = bounds[key] = tuned_row

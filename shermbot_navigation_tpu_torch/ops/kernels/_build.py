@@ -54,6 +54,7 @@ SIGNATURES = {
     "circle_fit_tail": ("circle_fit", [_P, _I, _I] + [_P] * 8 + [_I, _P]),
     "circle_fit_trace": ("circle_fit", [_P, _I, _P, _P]),
     "circle_fit_probe": ("circle_fit", [_P, _P, _I, _P]),
+    "ekf_tick": ("ekf_tick", [_P] * 15 + [_I] * 6 + [_F] * 2 + [_P]),
 }
 
 

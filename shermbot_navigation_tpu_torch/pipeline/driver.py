@@ -36,8 +36,10 @@ from ..device import resolve
 from ..models import ekf_batch
 from ..models import ekf_slam as ekf
 from ..ops import diff_drive as dd
+from ..ops.kernels import ekf_tick
 from ..ops.landmark_detection import detect_landmarks
 from ..sim import tube_world as tw
+from ..utils import tracing
 from ..utils.tracing import stage
 from .config import ScenarioConfig
 from .metrics import nees as nees_fn
@@ -305,7 +307,13 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
     scans). ``gate_trace`` (a list, diagnostics) receives each tick's
     smallest relative gate margin of every world, a (B,) tensor, on
     unknown association: where a world parts from another run, it tells a
-    rounding tie at a gate from a fault."""
+    rounding tie at a gate from a fault.
+
+    The filter's tick is one kernel launch for all B worlds on the card
+    (``ops/kernels/ekf_tick``; it raises on a state it does not take,
+    such as float64) and the plain ``ekf_batch`` tick on the CPU; counted
+    once a run in ``filter.fused_runs`` or ``filter.plain_runs``
+    (``utils/tracing.counters``)."""
     device = resolve(device)
     params = scn.world_params(dtype, device)
     Q, R = scn.noise_matrices(dtype, device)
@@ -315,6 +323,12 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
     cmds = command_twist(scn, T, dtype, device)
     src = NoiseSource(scn, noise, (B,), dtype, device)
 
+    M = scn.max_clusters if scn.use_lidar else len(scn.tubes)
+    tracing.count("filter.fused_runs" if device.type == "cuda"
+                  else "filter.plain_runs", 1)
+    # known association: the ids are the measurement order
+    ids = torch.arange(M, dtype=torch.int32, device=device).expand(
+        B, M).contiguous() if scn.known_association else None
     sense = init_sense(params, dtype, (B,))
     filt = ekf_batch.init(ecfg, B, dtype=dtype, device=device)
     outs = alloc_outputs((B,), T, dtype, device)
@@ -328,15 +342,8 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
         if on_tick is not None:
             on_tick(t, obs, zs, valid)
         with stage("tick.filter", device):
-            if scn.known_association:
-                ids = torch.arange(zs.shape[1], dtype=torch.int32,
-                                   device=device)[None, :].expand(
-                                       zs.shape[:2])
-                filt = ekf_batch.known_association_step(
-                    ecfg, filt, twist, zs, valid, ids, Q, R)
-            else:
-                filt = ekf_batch.step(ecfg, filt, twist, zs, valid, Q, R,
-                                      gate_margins)
+            filt = ekf_tick.step(ecfg, filt, twist, zs, valid, Q, R, ids,
+                                 gate_margins)
         slam_pose = filt.mean[:3].T                         # (B, 3)
         cov_rr = filt.cov[:3, :3].permute(2, 0, 1)          # (B, 3, 3)
         outs.true_pose[:, t] = obs.true_pose
