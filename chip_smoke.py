@@ -21,7 +21,7 @@ It imports nothing of JAX. Phases, one JSON line each:
 
 1. device  -- card name and power limit (nvidia-smi), torch/CUDA versions,
               the TF32 switches (all off);
-2. build   -- the five CUDA sources under ``csrc/`` built, one ``nvcc``
+2. build   -- the six CUDA sources under ``csrc/`` built, one ``nvcc``
               each, all at once (seconds; registers, shared memory and
               spill bytes of every kernel from ptxas);
 3. grid_update against its plain version at N=2048, M=8 on the card;
@@ -84,9 +84,15 @@ It imports nothing of JAX. Phases, one JSON line each:
    ``n_seen`` at every tick, poses within stated bounds, the
    deterministic world's ATE within 1e-3 m; median-world ATE, diverged
    fraction and median ``n_seen`` over all worlds; the smallest margins of
-   a split, a circle and a gate decision to their thresholds; the tail
-   kernel's counter and kernel 5's (the filter's tick) each equal the
-   ticks run. Then (phase config3_ekf_tick) kernel 5 against the plain
+   a split, a circle and a gate decision to their thresholds; the
+   counters of kernel 6 (perception's front end), the tail kernel and
+   kernel 5 (the filter's tick) each equal the ticks run. Then (phase
+   segment_fit_inputs) kernel 6 against its plain version on every 8th
+   tick's scans: bit for bit against the plain version summed in ray
+   order; against it on cuBLAS, count, valid and the stored rows exactly,
+   is_circle exactly away from the threshold, each sum within its own
+   column's float32 bound for another order. Then
+   (phase config3_ekf_tick) kernel 5 against the plain
    tick (``ekf_batch.step``) at B=1024 for EKF_TICKS ticks of the same
    noise: two filters fed the same real detections, every world's state
    and smallest gate margin equal bit for bit after every tick except
@@ -105,8 +111,9 @@ It imports nothing of JAX. Phases, one JSON line each:
    split by host clock into noise, sim, perception and filter; device
    kernels a tick of the whole tick and of path A's perception stage
    (``torch.profiler``); ms per call (CUDA events), device ms
-   (``torch.profiler``) and plain ms of circle_moments, circle_fit and
-   circle_fit_tail, and the fit's latency floor: one dependent read of
+   (``torch.profiler``) and plain ms of circle_moments, circle_fit,
+   circle_fit_tail and segment_fit_inputs, and the fit's latency floor:
+   one dependent read of
    device memory (the scan's probe) + the tail's dependent chain (the fit
    kernel's probe: one warp, each fit waiting for the last); the library
    calls that compute what grid_update and cov_update compute
@@ -219,8 +226,8 @@ It imports nothing of JAX. Phases, one JSON line each:
    set to 0 just before and read just after: (a) ``aux_staged``: the
    staged pipeline (``pipeline/staged``) of ``lidar20_full`` on two
    streams (producer and consumer, a double-buffered packet between them)
-   against its sequential oracle, T21 ticks, kernel 4's tail launched
-   once a tick and no other kernel; ms a tick of both in turns on
+   against its sequential oracle, T21 ticks, kernel 6 and kernel 4's tail
+   launched once a tick and no other kernel; ms a tick of both in turns on
    ``lidar20_full`` and ``loop5_known``, and the streams' overlap by
    ``torch.profiler``; (b) ``aux_guarded_tick``: the guarded deferred
    tick (``utils/guards``) at N=2048, M=8 under the sync debug mode (no
@@ -240,15 +247,17 @@ It imports nothing of JAX. Phases, one JSON line each:
 22. lidar20_tuned -- config 3's quality mode (nearest-neighbour
    association, chi-square gates, wrapped innovations, multiplicative
    slip) through ``run_scenario_batch_lanes`` at B3 worlds for its 600
-   ticks, every counter set to 0 just before and read after (kernel 4's
-   tail and kernel 5 once a tick each, nothing else): the first 8 worlds
+   ticks, every counter set to 0 just before and read after (kernel 6,
+   kernel 4's tail and kernel 5 once a tick each, nothing else): the first
+   8 worlds
    on the draws of
    ``tests/fixtures/lidar20_tuned_golden.json`` held to the JAX f32 run
    (bounds and reasons beside LIDAR_TUNED_TOL), no world diverged,
    median-world ATE, diverged fraction, median NEES and world x ticks /
    s; then ``run_scenario_batch`` on the first B22_VMAPPED worlds and
-   T22_VMAPPED ticks of the same noise against the lanes run (the tail
-   once a tick), and the tail kernel bit for bit against its plain
+   T22_VMAPPED ticks of the same noise against the lanes run (kernel 6
+   and the tail once a tick), and the tail kernel bit for bit against its
+   plain
    version on the last tick's scans.
 23. edge -- ``ServingEngine`` at N = 32768 and 65536, M=8 (planes of
    17.2 and 68.7 GB; the scan's 4- and 8-lane plans with the op history
@@ -302,6 +311,7 @@ from shermbot_navigation_tpu_torch.ops.kernels import circle_moments as cmk
 from shermbot_navigation_tpu_torch.ops.kernels import cov_update as cu
 from shermbot_navigation_tpu_torch.ops.kernels import ekf_tick
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as gu
+from shermbot_navigation_tpu_torch.ops.kernels import perception as pk
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as sq
 from shermbot_navigation_tpu_torch.ops.landmark_detection import (
     detect_landmarks)
@@ -493,6 +503,25 @@ CONFIG3_TOL = {"sim_early": 2e-5, "true_pose": 4e-2, "odom_pose": 5e-3,
                "n_detections_share": 0.95, "n_detections_diff": 3,
                "n_seen_final": 3, "deterministic_ate": 1e-3, "ate": 1e-2}
 PERCEPTION_POS_TOL = 1e-3
+# Kernel 6, the segmented perception's front end, against its plain
+# version (``clustering._segment_fit_inputs``) on the card, two ways.
+# First against the plain version whose one-hot products add the rays one
+# after another in ray order (the kernel's order): every output bit for
+# bit. Then against the plain version as it runs, on cuBLAS's products,
+# whose order is cuBLAS's own: count, valid and the stored rows (the
+# moments' n column) exactly; is_circle exactly where the plain version
+# decides the same at the threshold +- FRONT_STD_MARGIN degrees; each sum
+# within float32's bound for a sum of m terms in another order, scaled to
+# its own column: 2 m^2 u rho^(d-1) (rho + 2 d A) for a moment of degree
+# d (m rows within rho of the centroid and A of the origin, u = 2^-24),
+# 2 (m + 1) u A for cx and cy, the z moment's bound over m for zbar (the
+# reasoning is in tests/test_torch_perception_kernel.py).
+FRONT_U = 2.0 ** -24
+FRONT_DEGREE = (4, 3, 3, 2, 2, 2, 1, 2, 1)   # zz, zx, zy, z, xx, xy, x, yy, y
+FRONT_STD_MARGIN = 1e-3
+# f32 operations a ray of the front end: ~60 comparisons, products and
+# sums, and cosf, sinf and atan2f counted as 20 each
+FRONT_FLOPS_PER_RAY = 120
 # the buffered path's plain version (~100 ms a tick at B3) runs on every
 # 8th tick's scans, to keep the whole run near 600 s
 PLAIN_EVERY = 8
@@ -748,6 +777,13 @@ KERNELS = {
         "replaces": "none (the port's own kernel): "
                     f"{PKG}/models/ekf_batch.py step, "
                     "known_association_step"},
+    # kernel 6, the port's own: the segmented perception's front end, where
+    # the JAX package leaves it to XLA (phase 13)
+    "segment_fit_inputs": {
+        "source": f"{PKG}/csrc/perception.cu",
+        "replaces": "none (the port's own kernel): "
+                    f"{PKG}/ops/clustering.py "
+                    "_segment_fit_inputs"},
     # kernel 4's tail on lidar20_tuned's segmented perception (phase 22)
     "circle_fit_tail_tuned": {
         "source": f"{PKG}/csrc/circle_fit.cu",
@@ -1737,7 +1773,7 @@ def phase_circle_fit(dev, scn, scan, sets):
                 bad.append(f"{name}: fit vs {key}")
 
     params = scn.world_params(device=dev)
-    tail_in = landmark_detection._segment_fit_inputs(
+    tail_in = clustering._segment_fit_inputs(
         scan, params.scan_min, params.scan_max, C3, P3)[:6]
     got = cfk.fit_tail(*tail_in, use_kernel=True)
     torch.cuda.synchronize()
@@ -1789,14 +1825,16 @@ def config3_noise(scn, dev, gslip, T, seed=11):
 def reset_counters():
     for fn in (gu.fused_grid_update, sq.deferred_seq_scan,
                cu.fused_kalman_update, cmk.circle_moments_raw,
-               cfk.circle_fit_raw, cfk.fit_tail, ekf_tick.step):
+               cfk.circle_fit_raw, cfk.fit_tail, ekf_tick.step,
+               pk.fit_inputs):
         fn.launches = 0
 
 
 def fit_launches():
     return {"circle_fit": cfk.circle_fit_raw.launches,
             "circle_fit_tail": cfk.fit_tail.launches,
-            "circle_moments": cmk.circle_moments_raw.launches}
+            "circle_moments": cmk.circle_moments_raw.launches,
+            "segment_fit_inputs": pk.fit_inputs.launches}
 
 
 def kernel_launches():
@@ -1898,8 +1936,9 @@ def phase_config3(dev, scn):
     if not finite:
         fail("config 3 produced non-finite values")
     if launches != {"circle_fit": 0, "circle_fit_tail": T,
-                    "circle_moments": 0}:
-        fail(f"path A launched {launches}, want circle_fit_tail {T}")
+                    "circle_moments": 0, "segment_fit_inputs": T}:
+        fail(f"path A launched {launches}, want circle_fit_tail and "
+             f"segment_fit_inputs {T} each")
     if filter_launches != T:
         fail(f"config 3's filter launched kernel 5 {filter_launches} times "
              f"in {T} ticks, want once a tick")
@@ -1930,7 +1969,112 @@ def phase_config3(dev, scn):
         if not max(ate_err) <= tol["ate"]:
             fail(f"fixture worlds' ATE off by {ate_err}")
     return (scans, zs_all, valid_all, launches["circle_fit_tail"],
-            filter_launches)
+            filter_launches, launches["segment_fit_inputs"])
+
+
+def fit_inputs_bounds(want):
+    """Each sum's bound against ``want`` (the plain version's fit inputs)
+    for a float32 sum in another order: ((B, C, 9) for the moments but
+    the n column, (B, C) for cx and cy, (B, C) for zbar)."""
+    mom, cx, cy, zbar = (w.double() for w in want[:4])
+    m = mom[..., 9].clamp_min(1.0)[..., None]
+    rho = mom[..., 3].clamp_min(0.0).sqrt()[..., None]  # any row's z <= sum
+    A = torch.maximum(cx.abs(), cy.abs())[..., None] + rho
+    d = torch.tensor(FRONT_DEGREE, dtype=torch.float64, device=mom.device)
+    tol = 2 * m ** 2 * FRONT_U * rho ** (d - 1) * (rho + 2 * d * A)
+    m, A = m[..., 0], A[..., 0]
+    return tol, 2 * (m + 1) * FRONT_U * A, tol[..., 3] / m + 2 * FRONT_U * \
+        zbar.abs()
+
+
+def in_ray_order(a, b):
+    """``a @ b`` for a one-hot ``a (..., C, n)``: each output summed over
+    the n rays one after another in ray order."""
+    acc = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=b.dtype,
+                      device=b.device)
+    for i in range(a.shape[-1]):
+        acc = acc + a[..., :, i, None] * b[..., None, i, :]
+    return acc
+
+
+def phase_fit_inputs(dev, scn, scans):
+    """Kernel 6 against its plain version on every PLAIN_EVERY-th tick's
+    (B3, 360) scans of phase 13: bit for bit against the plain version
+    summed in ray order, and within each column's bound against the plain
+    version on cuBLAS. Returns the largest difference of the moments,
+    centroid and zbar from the latter."""
+    params = scn.world_params(device=dev)
+    lo, hi = params.scan_min, params.scan_max
+    plain = lambda scan, thr=10.0: clustering._segment_fit_inputs(
+        scan, lo, hi, C3, P3, thr)
+    names = ("moments", "cx", "cy", "zbar", "count", "valid", "is_circle")
+    columns = ("zz", "zx", "zy", "z", "xx", "xy", "x", "yy", "y")
+    ticks = range(0, scans.shape[0], PLAIN_EVERY)
+    bad = dict.fromkeys(("count", "valid", "stored_rows", "is_circle_clear",
+                         "is_circle_near_threshold"), 0)
+    ordered_bad = dict.fromkeys(names, 0)
+    cublas_equal = dict.fromkeys(names, 0)
+    err = dict.fromkeys((*columns, "cx", "cy", "zbar"), 0.0)
+    of_bound = dict.fromkeys(err, 0.0)
+    slots = 0
+    matmul = torch.matmul
+    for t in ticks:
+        got = pk.fit_inputs(scans[t], lo, hi, C3, P3, use_kernel=True)
+        torch.matmul = in_ray_order
+        try:
+            ordered = plain(scans[t])
+        finally:
+            torch.matmul = matmul
+        for name, g, o in zip(names, got, ordered):
+            ordered_bad[name] += int((g != o).sum())
+        del ordered
+        want = plain(scans[t])
+        clear = plain(scans[t], 10.0 - FRONT_STD_MARGIN)[6] == plain(
+            scans[t], 10.0 + FRONT_STD_MARGIN)[6]
+        for name, g, w in zip(names, got, want):
+            same = g == w
+            cublas_equal[name] += int(
+                (same.all(-1) if name == "moments" else same).sum())
+        bad["count"] += int((got[4] != want[4]).sum())
+        bad["valid"] += int((got[5] != want[5]).sum())
+        bad["stored_rows"] += int((got[0][..., 9] != want[0][..., 9]).sum())
+        differ = got[6] != want[6]
+        bad["is_circle_clear"] += int((differ & clear).sum())
+        bad["is_circle_near_threshold"] += int((differ & ~clear).sum())
+        tol_m, tol_c, tol_z = fit_inputs_bounds(want)
+        diff = lambda g, w: (g.double() - w.double()).abs()
+        e_m = diff(got[0][..., :9], want[0][..., :9])
+        pairs = [(c, e_m[..., k], tol_m[..., k])
+                 for k, c in enumerate(columns)]
+        pairs += [("cx", diff(got[1], want[1]), tol_c),
+                  ("cy", diff(got[2], want[2]), tol_c),
+                  ("zbar", diff(got[3], want[3]), tol_z)]
+        for c, e, tol in pairs:
+            # an empty slot's bound is 0 and its error 0: a share of 0
+            share = torch.where(e == 0, torch.zeros_like(e), e / tol)
+            err[c] = max(err[c], float(e.max()))
+            of_bound[c] = max(of_bound[c], float(
+                torch.nan_to_num(share, nan=float("inf")).max()))
+        slots += got[5].numel()
+    emit(phase="segment_fit_inputs", B=B3, ticks=len(ticks), slots=slots,
+         ray_order_mismatches=ordered_bad,
+         cublas_bit_equal_share={k: v / slots
+                                 for k, v in cublas_equal.items()},
+         mismatches=bad, max_abs_err=err, max_share_of_bound=of_bound,
+         std_margin_deg=FRONT_STD_MARGIN,
+         note="kernel 6 on the card on every "
+              f"{PLAIN_EVERY}th tick's scans of phase 13: bit for bit "
+              "against _segment_fit_inputs summed in ray order; against it "
+              "on cuBLAS, the exact outputs and each sum's error and its "
+              "share of that column's float32 bound")
+    exact = {k: v for k, v in bad.items() if k != "is_circle_near_threshold"}
+    if any(ordered_bad.values()):
+        fail(f"the front-end kernel differs from its plain version summed "
+             f"in ray order: {ordered_bad}")
+    if any(exact.values()) or not max(of_bound.values()) <= 1.0:
+        fail(f"the front-end kernel differs from its plain version: {bad}, "
+             f"shares of each column's bound {of_bound}")
+    return max(err.values())
 
 
 def ekf_tick_work(D, M, B):
@@ -2117,7 +2261,7 @@ def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
          switch_share=FIT_SWITCH_SHARE, tensor_form_fit=dict(
              tf, launches=launches_tf, fit_atol=FIT_ATOL))
     if launches != {"circle_fit": T, "circle_fit_tail": 0,
-                    "circle_moments": 0}:
+                    "circle_moments": 0, "segment_fit_inputs": 0}:
         fail(f"path B launched {launches}, want circle_fit {T}")
     if any(bad.values()):
         fail(f"path B's detections differ: {bad}")
@@ -2293,6 +2437,10 @@ def kernel_bounds(cm_counts):
                        30 * int(cnt.sum()) + TAIL_FLOPS * C),
         # 10 moments, cx, cy, zbar, count, valid in; the fit out
         "circle_fit_tail": ((13 * 4 + 4 + 1) * C + 13 * C, TAIL_FLOPS * C),
+        # the C // C3 scans of 360 rays in; 10 moments, cx, cy, zbar,
+        # count (4 bytes each), valid and is_circle out a slot
+        "segment_fit_inputs": (4 * 360 * (C // C3) + 58 * C,
+                               FRONT_FLOPS_PER_RAY * 360 * (C // C3)),
     }
     return {k: bound_of(*w) for k, w in work.items()}
 
@@ -2424,7 +2572,7 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
     pts, cnt = cm_ops
     valid = cnt >= 3
     lo, hi = params.scan_min, params.scan_max
-    tail_in = landmark_detection._segment_fit_inputs(st["scan"], lo, hi, C3,
+    tail_in = clustering._segment_fit_inputs(st["scan"], lo, hi, C3,
                                                      P3)[:6]
     calls = {
         "circle_moments": (
@@ -2438,7 +2586,13 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
         "circle_fit_tail": (
             lambda: cfk.fit_tail(*tail_in, use_kernel=True),
             lambda: cfk.fit_tail(*tail_in, use_kernel=False),
-            "circle_fit_tail_kernel")}
+            "circle_fit_tail_kernel"),
+        "segment_fit_inputs": (
+            lambda: pk.fit_inputs(st["scan"], lo, hi, C3, P3,
+                                  use_kernel=True),
+            lambda: clustering._segment_fit_inputs(st["scan"], lo,
+                                                           hi, C3, P3),
+            "segment_fit_inputs_kernel")}
     per_call = {name: {"ms": cuda_ms(fn, 200),
                        "plain_ms": cuda_ms(plain, 5 if name == "circle_moments"
                                            else 2, 3),
@@ -2453,7 +2607,7 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
             bound_ms=bounds[name]["bound_ms"],
             bound_by=bounds[name]["bound_by"],
             share_of_bound=bounds[name]["bound_ms"] / d if d else None)
-        if name != "circle_moments":
+        if name in ("circle_fit", "circle_fit_tail"):
             per_call[name]["share_of_latency_floor"] = (
                 floor["floor_ms"] / d if d else None)
     lib = library_ms(grid_ops, cov_ops)
@@ -4186,7 +4340,7 @@ def phase_staged(dev):
         fail(f"staged rollout differs from its oracle: {errs}, n_seen "
              f"equal {n_seen_equal}")
     want = dict.fromkeys(launches, 0)
-    want["circle_fit_tail"] = T21
+    want["circle_fit_tail"] = want["segment_fit_inputs"] = T21
     if launches != want:
         fail(f"staged lidar20_full launched {launches}, want {want}")
     return launches
@@ -4554,7 +4708,7 @@ def tail_kernel_row(scn, scan):
     segmented path's own moments of ``scan`` (one tick's scans), with its
     time, its plain version's and its bound."""
     params = scn.world_params(device=scan.device)
-    tail_in = landmark_detection._segment_fit_inputs(
+    tail_in = clustering._segment_fit_inputs(
         scan, params.scan_min, params.scan_max, C3, P3)[:6]
     got = cfk.fit_tail(*tail_in, use_kernel=True)
     torch.cuda.synchronize()
@@ -4579,12 +4733,13 @@ def phase_lidar20_tuned(dev):
     """Phase 22: ``lidar20_tuned`` on the card. The main path,
     ``run_scenario_batch_lanes`` at B3 worlds for the scenario's T_CONFIG3
     ticks with every counter set to 0 just before and read after (kernel
-    4's tail once a tick, no other kernel); the fixture worlds held to the
-    JAX f32 run (``tuned_fixture_checks``); no world may diverge; the
-    median-world ATE, the diverged fraction, the median NEES and world x
-    ticks / s. Then ``run_scenario_batch`` (the dense engine under
-    ``torch.func.vmap``) on the first B22_VMAPPED worlds and T22_VMAPPED
-    ticks of the same noise against the lanes run, the tail once a tick;
+    6, kernel 4's tail and kernel 5 once a tick, no other kernel); the
+    fixture worlds held to the JAX f32 run (``tuned_fixture_checks``); no
+    world may diverge; the median-world ATE, the diverged fraction, the
+    median NEES and world x ticks / s. Then ``run_scenario_batch`` (the
+    dense engine under ``torch.func.vmap``) on the first B22_VMAPPED
+    worlds and T22_VMAPPED ticks of the same noise against the lanes run,
+    kernel 6 and the tail once a tick;
     and the tail kernel against its plain version, bit for bit, on the
     last tick's scans. Returns the kernels line's row."""
     scn = get_scenario("lidar20_tuned")
@@ -4626,10 +4781,11 @@ def phase_lidar20_tuned(dev):
     if not finite or diverged:
         fail(f"lidar20_tuned: finite {finite}, {diverged} of {B3} worlds "
              f"diverged")
-    if launches != {k: T if k in ("circle_fit_tail", "ekf_tick") else 0
+    if launches != {k: T if k in ("circle_fit_tail", "ekf_tick",
+                                  "segment_fit_inputs") else 0
                     for k in launches}:
-        fail(f"lidar20_tuned launched {launches}, want the tail and kernel "
-             f"5 {T} times each")
+        fail(f"lidar20_tuned launched {launches}, want the front end, the "
+             f"tail and kernel 5 {T} times each")
     if bad:
         fail(f"lidar20_tuned's fixture worlds against the JAX run: {bad}")
 
@@ -4651,8 +4807,10 @@ def phase_lidar20_tuned(dev):
     if not (all_finite(dense) and seen_eq and ok):
         fail(f"lidar20_tuned through run_scenario_batch against the lanes "
              f"run: n_seen equal {seen_eq}, poses off by {err}")
-    if v_launches["circle_fit_tail"] != Tv:
-        fail(f"run_scenario_batch launched the tail "
+    if v_launches["circle_fit_tail"] != Tv or \
+            v_launches["segment_fit_inputs"] != Tv:
+        fail(f"run_scenario_batch launched the front end "
+             f"{v_launches['segment_fit_inputs']} and the tail "
              f"{v_launches['circle_fit_tail']} times in {Tv} ticks")
     if tail["first_difference_vs_plain_chain"] is not None:
         fail(f"the tail kernel differs from its plain version on "
@@ -5070,8 +5228,9 @@ def run_phases(dev, card, entry_proc, ptxas) -> int:
     cm_ops, cm_err, scan, sets = phase_circle_moments(dev, scn)
     fit_err, tail_err = phase_circle_fit(dev, scn, scan, sets)
     del scan, sets
-    scans, zs_all, valid_all, tail_launches, filter_launches = \
-        phase_config3(dev, scn)
+    scans, zs_all, valid_all, tail_launches, filter_launches, \
+        front_launches = phase_config3(dev, scn)
+    front_err = phase_fit_inputs(dev, scn, scans)
     ekf_err, ekf_row = phase_ekf_tick(dev, scn)
     fit_launches_b, cm_launches = phase_perception_buffered(
         dev, scn, scans, zs_all, valid_all)
@@ -5143,6 +5302,13 @@ def run_phases(dev, card, entry_proc, ptxas) -> int:
                   f"for all {B3} worlds; held to ekf_batch.step for "
                   f"{EKF_TICKS} ticks and timed on the last tick's inputs "
                   f"(phase config3_ekf_tick)")
+    key = "segment_fit_inputs"
+    launches[key], errs[key] = front_launches, front_err
+    paths[key] = (f"config 3's segmented perception (path A, phase 13): one "
+                  f"launch a tick for all {B3} worlds; held to "
+                  f"_segment_fit_inputs on every {PLAIN_EVERY}th tick's "
+                  f"scans (phase segment_fit_inputs), timed on 5-tick scans "
+                  f"(phase 15)")
     key = "circle_fit_tail_tuned"
     launches[key], errs[key] = tuned_launches, tuned_row["max_abs_err"]
     per_call[key] = bounds[key] = tuned_row

@@ -22,6 +22,11 @@ one-hot masked sums), and the point buffer is filled with ``scatter_``
 (JAX: a ``(C*P, n)`` one-hot matmul). Member slots are unique, overflow
 rows go to a dump row that is dropped, and empty slots stay zero, so the
 results are the same.
+
+``_segment_fit_inputs`` is the segmented perception path's front end
+(``landmark_detection``) up to the circle fit, in plain tensor ops: the
+plain version of the kernel ``ops/kernels/perception.fit_inputs``, which
+imports it from here.
 """
 
 from __future__ import annotations
@@ -185,3 +190,100 @@ def classify_clusters(clusters: Clusters, std_threshold_deg: float = 10.0,
         margins["std"] = torch.where(
             real, torch.abs(std - std_threshold_deg), inf).min()
     return real & (std < std_threshold_deg)
+
+
+def _segment_fit_inputs(ranges, min_range, max_range, max_clusters: int,
+                        max_points: int, std_threshold_deg: float = 10.0,
+                        margins: dict | None = None):
+    """The segmented path up to its fit: ``(moments (..., C, 10), cx, cy,
+    zbar, count, valid, is_circle)``, the moments the 10 distinct sums
+    (zz, zx, zy, z, xx, xy, x, yy, y, n) as columns of the one segment-sum
+    product that also holds the angle deviations (a strided view, which
+    the tail kernel reads in place)."""
+    n = ranges.shape[-1]
+    dt = ranges.dtype
+    dev = ranges.device
+    C = max_clusters
+    P = max_points
+    idx = torch.arange(n, device=dev)
+    slot = torch.arange(C, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    pts, member, cid, pos, counts, num_closed, wrap_move = _scan_membership(
+        ranges, min_range, max_range, C, SPLIT_THRESHOLD, margins)
+    x = pts[..., 0]
+    y = pts[..., 1]
+
+    # effective buffer coordinates per ray (incl. the wrap append; a full
+    # cluster 0 overwrites its last stored row, exactly like the buffer's
+    # row write at min(counts0, P-1))
+    is_last = idx == n - 1
+    wrap = wrap_move[..., None]
+    counts0 = counts[..., :1]
+    moved = is_last & wrap
+    rcid = torch.where(moved, torch.zeros_like(cid), cid)
+    rpos = torch.where(moved, torch.clamp_max(counts0, P - 1), pos)
+    overwritten = ((~is_last) & wrap & (counts0 >= P)
+                   & (cid == 0) & (pos == P - 1))
+    rinc = ((member & (pos < P) & ~overwritten) | moved) & (rcid < C)
+
+    count_final = counts + (wrap & (slot == 0)).to(counts.dtype)
+    valid = (slot < num_closed[..., None]) & (count_final >= 3)
+
+    Wc = ((rcid[..., None, :] == slot[:, None])
+          & rinc[..., None, :]).to(dt)                     # (..., C, n)
+    rcid_c = torch.clamp(rcid, 0, C - 1).long()
+
+    def seg(vals):
+        """Segment-sum a list of per-ray tensors -> list of (..., C)."""
+        out = torch.matmul(Wc, torch.stack(vals, dim=-1))  # (..., C, K)
+        return [out[..., k] for k in range(len(vals))]
+
+    def bcast(v):
+        """Broadcast a per-cluster tensor back to rays (0 off-cluster)."""
+        return torch.where(rinc, torch.gather(v, -1, rcid_c), zero)
+
+    # endpoints: first stored row / last stored row of each cluster
+    w0 = Wc * (rpos == 0).to(dt)[..., None, :]
+    p2 = torch.matmul(w0, pts)                             # (..., C, 2)
+    last = torch.clamp(count_final - 1, 0, P - 1)
+    w3 = Wc * (rinc & (rpos == torch.gather(last, -1, rcid_c))
+               ).to(dt)[..., None, :]
+    p3 = torch.matmul(w3, pts)
+
+    cf_r = bcast(count_final.to(dt))
+    p2x_r, p2y_r = bcast(p2[..., 0]), bcast(p2[..., 1])
+    p3x_r, p3y_r = bcast(p3[..., 0]), bcast(p3[..., 1])
+
+    # inscribed angles (ref :221-224), interior rows only
+    num = p2y_r * (x - p3x_r) + y * (p3x_r - p2x_r) + p3y_r * (p2x_r - x)
+    den = (p2x_r - x) * (x - p3x_r) + (p2y_r - y) * (y - p3y_r)
+    angles = se2.rad2deg(torch.atan2(num, den))
+    interior = rinc & (rpos >= 1) & (rpos.to(dt) <= cf_r - 2.0)
+    ang0 = torch.where(interior, angles, zero)             # select, not *
+
+    sx, sy, s_ang, s_int = seg([x, y, ang0, interior.to(dt)])
+    cnt_m = torch.clamp_min(count_final, 1).to(dt)
+    cx = sx / cnt_m
+    cy = sy / cnt_m
+    cnt_i = torch.clamp_min(s_int, 1.0)
+    mean_ang = s_ang / cnt_i
+
+    dev2 = torch.where(interior, (angles - bcast(mean_ang)) ** 2, zero)
+    xc = x - bcast(cx)
+    yc = y - bcast(cy)
+    z = xc * xc + yc * yc
+    sums = torch.matmul(Wc, torch.stack(
+        [dev2, z * z, z * xc, z * yc, z, xc * xc, xc * yc, xc,
+         yc * yc, yc, torch.ones_like(x)], dim=-1))       # (..., C, 11)
+    s_dev2, sz = sums[..., 0], sums[..., 4]
+
+    std = torch.sqrt(s_dev2 / cnt_i)
+    real = valid & (count_final >= 3)
+    if margins is not None:
+        inf = torch.full_like(std, float("inf"))
+        margins["std"] = torch.where(
+            real, torch.abs(std - std_threshold_deg), inf).min()
+    is_circle = real & (std < std_threshold_deg)
+    zbar = sz / cnt_m
+    return sums[..., 1:], cx, cy, zbar, count_final, valid, is_circle

@@ -55,6 +55,8 @@ SIGNATURES = {
     "circle_fit_trace": ("circle_fit", [_P, _I, _P, _P]),
     "circle_fit_probe": ("circle_fit", [_P, _P, _I, _P]),
     "ekf_tick": ("ekf_tick", [_P] * 15 + [_I] * 6 + [_F] * 2 + [_P]),
+    "segment_fit_inputs": ("perception",
+                           [_P] * 3 + [_F] * 4 + [_P] * 8 + [_I] * 6 + [_P]),
 }
 
 

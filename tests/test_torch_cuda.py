@@ -58,6 +58,7 @@ from shermbot_navigation_tpu_torch.ops.kernels import circle_fit as cfk
 from shermbot_navigation_tpu_torch.ops.kernels import circle_moments as tcm
 from shermbot_navigation_tpu_torch.ops.kernels import cov_update as tcu
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as tgu
+from shermbot_navigation_tpu_torch.ops.kernels import perception
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as tsq
 from shermbot_navigation_tpu_torch.parallel import bigmap, blocked_ekf
 from shermbot_navigation_tpu_torch.parallel import megamap, schur_dist
@@ -577,7 +578,8 @@ def test_fit_tail_kernel_is_bit_equal_to_plain(dev):
     scans, 64 worlds x 16 slots, the 10 distinct sums read in place at
     their row stride) and on 16-wide rows: centre, radius and ok equal bit
     for bit to the plain chain; the segmented detections equal those of
-    the plain route."""
+    the plain route, and bit for bit the plain tail's on the front-end
+    kernel's fit inputs."""
     scn = get_scenario("lidar20_full")
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -604,6 +606,12 @@ def test_fit_tail_kernel_is_bit_equal_to_plain(dev):
                                             params.scan_max, use_kernel=False)
     assert torch.equal(a.valid, b.valid)
     assert torch.equal(a.positions, b.positions)
+    front = perception.fit_inputs(last["scan"], params.scan_min,
+                                  params.scan_max, 16, 64)
+    center, radius, okf = cfk.fit_tail(*front[:6], use_kernel=False)
+    c = landmark_detection._compact(center, front[6] & okf & (radius <= 1.0))
+    assert torch.equal(a.valid, c.valid)
+    assert torch.equal(a.positions, c.positions)
 
 
 def test_circle_fit_trace_equals_the_plain_trace(dev):

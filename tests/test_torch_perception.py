@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from _scans import (CLUSTER_CASES, arc_scans, synth_scan, tube_scans,
+                    wraparound_scan)
 from _torch_parity import jax_to_numpy  # noqa: F401  (one torch thread)
 from shermbot_navigation_tpu.ops import clustering as jcl
 from shermbot_navigation_tpu.ops import landmark_detection as jld
@@ -26,78 +28,6 @@ J_DETECT = {s: jax.jit(jax.vmap(lambda r, s=s: jld.detect_landmarks(
 J_CLUSTER = jax.jit(jax.vmap(lambda r: jcl.cluster_scan(r, MINR, MAXR)))
 
 
-def synth_scan(segments, n=360, fill=2.0):
-    r = np.full(n, fill)
-    for s, e, v in segments:
-        r[s:e] = v
-    return r
-
-
-# the reference's clustering cases (tests/test_perception.py) with the
-# valid clusters' counts they expect
-CLUSTER_CASES = {
-    "two_clusters": ([(10, 20, 0.5), (100, 110, 0.7)], [10, 10]),
-    "jump_splits": ([(10, 15, 0.5), (15, 20, 0.7)], [5, 5]),
-    "small_jump_merges": ([(10, 15, 0.5), (15, 20, 0.52)], [10]),
-    "out_of_range_gap": ([(10, 15, 0.99), (15, 18, 1.01), (18, 23, 0.99)],
-                         [10]),
-    "closes_at_359": ([(350, 360, 0.5)], [10]),
-    "wraparound_moves_359": ([(355, 360, 0.5), (0, 5, 0.5)], [6]),
-    "min_range_filtered": ([(10, 20, 0.01)], []),
-    "under_3_invalid": ([(10, 12, 0.5)], []),
-    "overflow_of_P": ([(10, 90, 0.5)], [80]),
-}
-
-
-def _arc_scans(seed, count, noise, dtype=np.float64):
-    """The reference's structured random scans: an out-of-range background
-    and a few arcs."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(count):
-        ranges = np.full(360, 5.0)
-        for _ in range(int(rng.integers(1, 7))):
-            c = int(rng.integers(0, 360))
-            w = int(rng.integers(3, 25))
-            r0 = rng.uniform(0.1, 0.95)
-            span = np.arange(c - w // 2, c + w // 2) % 360
-            ranges[span] = r0 + rng.normal(0, noise, span.shape[0])
-        out.append(ranges)
-    return np.stack(out).astype(dtype)
-
-
-def _tube_scans(seed, count, noise=1e-4, dtype=np.float64):
-    """Scans of tubes (radius 0.0381) around the robot, exact ray-circle
-    ranges at integer degrees plus a little range noise (a noise-free tube
-    gives a rank-deficient moment matrix, whose fit amplifies ulps)."""
-    rng = np.random.default_rng(seed)
-    ang = np.deg2rad(np.arange(360.0))
-    u = np.stack([np.cos(ang), np.sin(ang)], -1)
-    out = []
-    for _ in range(count):
-        ranges = np.full(360, 2.0)
-        for _ in range(int(rng.integers(2, 9))):
-            d, a = rng.uniform(0.2, 1.05), rng.uniform(0, 2 * np.pi)
-            c = d * np.array([np.cos(a), np.sin(a)])
-            b = -(u @ c)
-            disc = b * b - (c @ c - 0.0381 ** 2)
-            t = -b - np.sqrt(np.maximum(disc, 0.0))
-            hit = (disc >= 0) & (t > 0)
-            ranges = np.where(hit & (t < ranges), t, ranges)
-        ranges = np.where(ranges < 2.0,
-                          ranges + rng.normal(0, noise, 360), ranges)
-        out.append(ranges)
-    return np.stack(out).astype(dtype)
-
-
-def _wraparound_scan():
-    ranges = np.full(360, 5.0)
-    th = np.deg2rad(np.arange(-8, 9).astype(np.float64))
-    ranges[np.arange(-8, 9) % 360] = 0.5 * np.cos(th) - np.sqrt(
-        np.maximum(0.04 ** 2 - (0.5 * np.sin(th)) ** 2, 0.0))
-    return ranges[None]
-
-
 def test_cluster_scan_reference_cases_match_jax():
     scans = np.stack([synth_scan(seg) for seg, _ in CLUSTER_CASES.values()])
     got = tcl.cluster_scan(torch.from_numpy(scans), MINR, MAXR)
@@ -111,9 +41,9 @@ def test_cluster_scan_reference_cases_match_jax():
     assert got.counts.dtype == torch.int32
 
 
-@pytest.mark.parametrize("maker,seed", [(_arc_scans, 3), (_tube_scans, 4)])
+@pytest.mark.parametrize("maker,seed", [(arc_scans, 3), (tube_scans, 4)])
 def test_cluster_and_classify_match_jax(maker, seed):
-    scans = maker(seed, 12, 0.01) if maker is _arc_scans else maker(seed, 12)
+    scans = maker(seed, 12, 0.01) if maker is arc_scans else maker(seed, 12)
     got = tcl.cluster_scan(torch.from_numpy(scans), MINR, MAXR)
     want = J_CLUSTER(jnp.asarray(scans))
     np.testing.assert_array_equal(got.counts.numpy(), want.counts)
@@ -199,18 +129,18 @@ def _three_way(scans, atol):
 
 def test_detect_random_scans_three_way():
     """``TestSegmentedDetect.test_random_scans``'s scans."""
-    _three_way(_arc_scans(3, 12, 0.01), 1e-10)
+    _three_way(arc_scans(3, 12, 0.01), 1e-10)
 
 
 def test_detect_tube_scans_three_way():
     """Tubes with 1e-4 range noise: detections exist (unlike the noisy
     arcs above, which the classifier rejects), and the fit is conditioned
     well enough that the port agrees with JAX to 1e-9."""
-    assert _three_way(_tube_scans(5, 16), 1e-9) > 20
+    assert _three_way(tube_scans(5, 16), 1e-9) > 20
 
 
 def test_detect_wraparound_and_all_out_of_range():
-    _three_way(np.concatenate([_wraparound_scan(),
+    _three_way(np.concatenate([wraparound_scan(),
                                np.full((2, 360), 5.0)]), 1e-10)
 
 
@@ -224,7 +154,7 @@ def test_detect_f32_decisions_equal():
         span = np.arange(c - 6, c + 7) % 360
         ranges[span] = 0.6 + rng.normal(0, 0.005, 13)
     scans = _pad16(np.concatenate([ranges[None],
-                                   _tube_scans(6, 8, 1e-3, np.float32)]))
+                                   tube_scans(6, 8, 1e-3, np.float32)]))
     for s in (True, False):
         got = tld.detect_landmarks(torch.from_numpy(scans), MINR, MAXR,
                                    segmented=s)

@@ -78,8 +78,12 @@ def test_batch_tick_records_its_three_stages_in_order():
     assert [s.name for s in stages] == list(TICK) * 3
     assert all(s.parent is None for s in stages)
     fits = [s for s in rec if s.name == "perception.circle_fit"]
-    assert len(fits) == 3
-    assert all(ids[f.parent].name == "tick.perception" for f in fits)
+    fronts = [s for s in rec if s.name == "perception.fit_inputs"]
+    assert len(fits) == len(fronts) == 3
+    assert all(ids[f.parent].name == "tick.perception"
+               for f in fits + fronts)
+    assert all(a.parent == f.parent and a.end_ns <= f.start_ns
+               for a, f in zip(fronts, fits))
 
 
 @pytest.mark.parametrize("engine", ["serving", "lanes"])
