@@ -312,6 +312,7 @@ from shermbot_navigation_tpu_torch.ops.kernels import cov_update as cu
 from shermbot_navigation_tpu_torch.ops.kernels import ekf_tick
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as gu
 from shermbot_navigation_tpu_torch.ops.kernels import perception as pk
+from shermbot_navigation_tpu_torch.ops.kernels import plain_versions
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as sq
 from shermbot_navigation_tpu_torch.ops.landmark_detection import (
     detect_landmarks)
@@ -877,14 +878,13 @@ def grid_errors(ops):
     """grid_update against its plain version on ``ops``: (max abs error of
     the pass, max abs error of the overwrite replay alone, which has no
     arithmetic and must be exact)."""
-    got = gu.fused_grid_update(ops[0].clone(), *ops[1:], use_kernel=True)
+    got = gu.fused_grid_update(ops[0].clone(), *ops[1:])
     torch.cuda.synchronize()
     err = float((got - gu.reference_grid_update(*ops)).abs().max())
     del got
     rep = (ops[0], torch.zeros_like(ops[1]), torch.zeros_like(ops[2])
            ) + ops[3:]
-    replay_err = float((gu.fused_grid_update(rep[0].clone(), *rep[1:],
-                                             use_kernel=True)
+    replay_err = float((gu.fused_grid_update(rep[0].clone(), *rep[1:])
                         - gu.reference_grid_update(*rep)).abs().max())
     return err, replay_err
 
@@ -956,7 +956,7 @@ def scan_compare(got, want, tol=SCAN_TOL):
 
 def phase_scan(args):
     want = sq.reference_seq_scan(*args)
-    got = sq.deferred_seq_scan(*args, use_kernel=True)
+    got = sq.deferred_seq_scan(*args)
     torch.cuda.synchronize()
     errs, bad = scan_compare(got, want)
     planes = args[7].reshape(2, 2, N, N)
@@ -974,10 +974,15 @@ def phase_scan(args):
     return max(errs.values())
 
 
-def serve(dev, cfg, wl, ticks, use_kernel):
+def on_plain(fn, *args, **kw):
+    """``fn(*args, **kw)`` on the kernels' plain versions, on the card."""
+    with plain_versions():
+        return fn(*args, **kw)
+
+
+def serve(dev, cfg, wl, ticks):
     eng = serving.ServingEngine(cfg, M, *bigmap.noise(device=dev),
-                                robot_pose=[0.0, 0.0, 0.0], device=dev,
-                                seq_kernel=use_kernel, grid_kernel=use_kernel)
+                                robot_pose=[0.0, 0.0, 0.0], device=dev)
     for t in range(ticks):
         zs, ids, tw = bigmap.measurements(wl, t)
         eng.tick(tw, zs, ids=ids)
@@ -1025,11 +1030,11 @@ def phase_main(dev, cfg):
     gu.fused_grid_update.launches = 0
     sq.deferred_seq_scan.launches = 0
     t0 = time.perf_counter()
-    eng = serve(dev, cfg, wl, T, None)
+    eng = serve(dev, cfg, wl, T)
     seconds = time.perf_counter() - t0
     launches = {"grid_update": gu.fused_grid_update.launches,
                 "seq_scan": sq.deferred_seq_scan.launches}
-    plain = serve(dev, cfg, wl, T, False)
+    plain = on_plain(serve, dev, cfg, wl, T)
 
     st, ps = eng.state, plain.state
     vs_plain, plain_bad = {}, []
@@ -1077,10 +1082,11 @@ def phase_timing(eng, plain, wl, grid_ops, scan_args):
             out.append((time.perf_counter() - start) * 1e3 / ticks)
         return statistics.median(out)
 
-    per_tick = {"kernel": tick_ms(eng, T, 50), "plain": tick_ms(plain, T, 10)}
+    per_tick = {"kernel": tick_ms(eng, T, 50),
+                "plain": on_plain(tick_ms, plain, T, 10)}
     cov, rest = grid_ops[0], grid_ops[1:]
-    grid = lambda: gu.fused_grid_update(cov, *rest, use_kernel=True)
-    scan = lambda: sq.deferred_seq_scan(*scan_args, use_kernel=True)
+    grid = lambda: gu.fused_grid_update(cov, *rest)
+    scan = lambda: sq.deferred_seq_scan(*scan_args)
     per_call = {
         "grid_update": {
             "ms": cuda_ms(grid, 50),
@@ -1114,7 +1120,7 @@ def phase_cov(dev):
     for flag in (True, False):
         apply = torch.tensor(flag, device=dev)
         want = cu.reference_kalman_update(*ops, apply=apply)
-        got = cu.fused_kalman_update(*ops, apply=apply, use_kernel=True)
+        got = cu.fused_kalman_update(*ops, apply=apply)
         torch.cuda.synchronize()
         errs[flag] = max(close_err(g, w, COV_ATOL)[0]
                          for g, w in zip(got, want))
@@ -1196,7 +1202,7 @@ def phase_scan_unknown(partial_args, full_args):
         margins = []
         want = sq.reference_seq_scan(*args, known=False,
                                      gate_margins=margins)
-        got = sq.deferred_seq_scan(*args, known=False, use_kernel=True)
+        got = sq.deferred_seq_scan(*args, known=False)
         torch.cuda.synchronize()
         errs, bad = scan_compare(got, want)
         kinds = got[-1].tolist()
@@ -1240,12 +1246,10 @@ def unknown_golden_errors(st, golden):
     return gold
 
 
-def run_unknown(dev, cfg, wl, use_kernel, margins=None):
+def run_unknown(dev, cfg, wl, margins=None):
     """T unknown ticks from an empty map, one runner call a tick; returns
     the final state and (n_seen, seen) after every tick, on the card."""
-    run = bigmap.make_unknown_runner(cfg, M, dev, seq_kernel=use_kernel,
-                                     grid_kernel=use_kernel,
-                                     gate_margins=margins)
+    run = bigmap.make_unknown_runner(cfg, M, dev, gate_margins=margins)
     Q, R = bigmap.noise(device=dev)
     st = blocked_ekf.init(cfg, 1, device=dev)
     hist = []
@@ -1265,12 +1269,12 @@ def phase_serving_unknown(dev, cfg):
     gu.fused_grid_update.launches = 0
     sq.deferred_seq_scan.launches = 0
     t0 = time.perf_counter()
-    st, hist = run_unknown(dev, cfg, wl, None)
+    st, hist = run_unknown(dev, cfg, wl)
     seconds = time.perf_counter() - t0
     launches = {"grid_update": gu.fused_grid_update.launches,
                 "seq_scan": sq.deferred_seq_scan.launches}
     margins = []
-    ps, phist = run_unknown(dev, cfg, wl, False, margins)
+    ps, phist = on_plain(run_unknown, dev, cfg, wl, margins)
 
     per_tick_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
                          for a, b in zip(hist, phist))
@@ -1369,12 +1373,10 @@ def dense_configs():
             EKFConfig(num_landmarks=N, symmetrize=False))
 
 
-def serving_on_dense(cfg_srv, cfg_off, dev, known=True, use_kernel=None):
+def serving_on_dense(cfg_srv, cfg_off, dev, known=True):
     seeded, _ = seeded_dense(cfg_off, dev)
     return serving.ServingEngine(cfg_srv, M, *dense_noise(dev), known=known,
-                                 dense_state=seeded, device=dev,
-                                 seq_kernel=use_kernel,
-                                 grid_kernel=use_kernel)
+                                 dense_state=seeded, device=dev)
 
 
 def dense_golden_errors(st, golden):
@@ -1483,10 +1485,9 @@ def phase_dense_timing(dev, dense, cov_ops, unk_args):
         return tick
 
     unk = serving_on_dense(cfg_srv, cfg_off, dev, known=False)
-    unk_plain = serving_on_dense(cfg_srv, cfg_off, dev, known=False,
-                                 use_kernel=False)
-    for e in (unk, unk_plain):
-        e.tick(tw, zs[0])                       # warm
+    unk_plain = serving_on_dense(cfg_srv, cfg_off, dev, known=False)
+    unk.tick(tw, zs[0])                         # warm
+    on_plain(unk_plain.tick, tw, zs[0])
     # row: (tick function, ticks a block, rounds)
     rows = {
         "dense_off": (dense_tick("off", cfg_off), 8, 6),
@@ -1495,7 +1496,7 @@ def phase_dense_timing(dev, dense, cov_ops, unk_args):
                                              ids=ids[t % 512]), 20, 6),
         "serving_unknown": (lambda t: unk.tick(tw, zs[t % 512]), 20, 6),
         "serving_unknown_plain": (
-            lambda t: unk_plain.tick(tw, zs[t % 512]), 3, 2),
+            lambda t: on_plain(unk_plain.tick, tw, zs[t % 512]), 3, 2),
     }
     clock = {k: T_DENSE for k in rows}
     times = {k: [] for k in rows}
@@ -1514,9 +1515,8 @@ def phase_dense_timing(dev, dense, cov_ops, unk_args):
             times[k].append((time.perf_counter() - start) * 1e3 / ticks)
     per_tick = {k: statistics.median(v) for k, v in times.items()}
     spread = {k: [min(v), max(v)] for k, v in times.items()}
-    cov_call = lambda: cu.fused_kalman_update(*cov_ops, use_kernel=True)
-    unk_call = lambda: sq.deferred_seq_scan(*unk_args, known=False,
-                                            use_kernel=True)
+    cov_call = lambda: cu.fused_kalman_update(*cov_ops)
+    unk_call = lambda: sq.deferred_seq_scan(*unk_args, known=False)
     per_call = {
         "cov_update": {
             "ms": cuda_ms(cov_call, 50),
@@ -1606,8 +1606,8 @@ def phase_circle_moments(dev, scn):
     pts = torch.where((row[None, :] >= cnt[:, None])[..., None],
                       torch.full_like(pts, float("nan")), pts)
 
-    want = cmk.circle_moments_raw(pts, cnt, use_kernel=False)
-    got = cmk.circle_moments_raw(pts, cnt, use_kernel=True)
+    want = on_plain(cmk.circle_moments_raw, pts, cnt)
+    got = cmk.circle_moments_raw(pts, cnt)
     torch.cuda.synchronize()
     errs, ratio, ok = moment_errors(got, want)
     finite = all(bool(torch.isfinite(g).all()) for g in got)
@@ -1620,8 +1620,8 @@ def phase_circle_moments(dev, scn):
         np.float32)).to(dev)
     ocnt = torch.from_numpy(rng.integers(0, Po + 9, (7, 143)).astype(
         np.int64)).to(dev)
-    owant = cmk.circle_moments_raw(opts, ocnt, use_kernel=False)
-    ogot = cmk.circle_moments_raw(opts, ocnt, use_kernel=True)
+    owant = on_plain(cmk.circle_moments_raw, opts, ocnt)
+    ogot = cmk.circle_moments_raw(opts, ocnt)
     torch.cuda.synchronize()
     oerrs, oratio, ook = moment_errors(ogot, owant)
     shapes_ok = [tuple(g.shape) for g in ogot] == [
@@ -1629,8 +1629,8 @@ def phase_circle_moments(dev, scn):
 
     # the fits behind both routes, on the real clusters as the scan gave
     # them (no overwritten counts)
-    fk = circle_fit.fit_circles(clusters, use_kernel=True)
-    fp = circle_fit.fit_circles(clusters, use_kernel=False)
+    fk = circle_fit.fit_circles(clusters)
+    fp = on_plain(circle_fit.fit_circles, clusters)
     torch.cuda.synchronize()
     both = fk.valid & fp.valid
     dpos = torch.where(both, (fk.center - fp.center).abs().amax(-1),
@@ -1640,13 +1640,12 @@ def phase_circle_moments(dev, scn):
     dfit = torch.maximum(dpos, drad)
     # which branch of the fit each route takes: the smallest eigenvalue of
     # the moment matrix against the fit's rank-deficiency switch
-    def rank_deficient(use_kernel):
-        m16, _, _ = cmk.circle_moments_raw(clusters.points, clusters.counts,
-                                           use_kernel=use_kernel)
+    def rank_deficient():
+        m16, _, _ = cmk.circle_moments_raw(clusters.points, clusters.counts)
         lam, _ = smallalg.eigh4_jacobi_c([m16[..., i] for i in range(16)])
         return torch.sqrt(torch.clamp_min(lam[0], 0.0)) < 1e-12
 
-    flips = (rank_deficient(True) != rank_deficient(False)) & both
+    flips = (rank_deficient() != on_plain(rank_deficient)) & both
     off = dfit > FIT_ATOL
     fits = {"valid_equal": bool(torch.equal(fk.valid, fp.valid)),
             "n_valid": int(both.sum()),
@@ -1739,10 +1738,10 @@ def phase_circle_fit(dev, scn, scan, sets):
     12)."""
     out, bad = {}, []
     for name, (pts, cnt, valid) in sets.items():
-        got = cfk.circle_fit_raw(pts, cnt, valid, use_kernel=True)
-        mom = cmk.circle_moments_raw(pts, cnt, use_kernel=True)
+        got = cfk.circle_fit_raw(pts, cnt, valid)
+        mom = cmk.circle_moments_raw(pts, cnt)
         torch.cuda.synchronize()
-        plain_mom = cmk.circle_moments_raw(pts, cnt, use_kernel=False)
+        plain_mom = on_plain(cmk.circle_moments_raw, pts, cnt)
         errs, ratio, ok = moment_errors(got[3:], plain_mom)
         m16, cent, zbar = got[3:]
         own = cfk._fit_tail_c([m16[..., k] for k in range(16)],
@@ -1775,9 +1774,9 @@ def phase_circle_fit(dev, scn, scan, sets):
     params = scn.world_params(device=dev)
     tail_in = clustering._segment_fit_inputs(
         scan, params.scan_min, params.scan_max, C3, P3)[:6]
-    got = cfk.fit_tail(*tail_in, use_kernel=True)
+    got = cfk.fit_tail(*tail_in)
     torch.cuda.synchronize()
-    want = cfk.fit_tail(*tail_in, use_kernel=False)
+    want = on_plain(cfk.fit_tail, *tail_in)
     diff = first_difference(got, want)
     out["tail_on_path_a_moments"] = {
         "C": got[2].numel(), "n_ok": int(got[2].sum()),
@@ -2019,7 +2018,7 @@ def phase_fit_inputs(dev, scn, scans):
     slots = 0
     matmul = torch.matmul
     for t in ticks:
-        got = pk.fit_inputs(scans[t], lo, hi, C3, P3, use_kernel=True)
+        got = pk.fit_inputs(scans[t], lo, hi, C3, P3)
         torch.matmul = in_ray_order
         try:
             ordered = plain(scans[t])
@@ -2120,10 +2119,9 @@ def phase_ekf_tick(dev, scn):
         sense, twist, zs, valid, _ = driver.sense_tick(
             scn, params, sense, cmds[t], src.tick(t))
         pm, fm = [], []
-        plain = ekf_tick.step(ecfg, plain, twist, zs, valid, Q, R, None, pm,
-                              use_kernel=False)
-        fused = ekf_tick.step(ecfg, fused, twist, zs, valid, Q, R, None, fm,
-                              use_kernel=True)
+        plain = ekf_tick.reference_step(ecfg, plain, twist, zs, valid, Q, R,
+                                        None, pm)
+        fused = ekf_tick.step(ecfg, fused, twist, zs, valid, Q, R, None, fm)
         want = torch.stack(pm).amin(0)
         tied |= want < EKF_TIE_REL
         keep = ~tied
@@ -2143,10 +2141,9 @@ def phase_ekf_tick(dev, scn):
     n_seen_all = int((plain.n_seen != fused.n_seen).sum())
 
     st = fused
-    kernel = lambda: ekf_tick.step(ecfg, st, twist, zs, valid, Q, R,
-                                   use_kernel=True)
-    plain_fn = lambda: ekf_tick.step(ecfg, st, twist, zs, valid, Q, R,
-                                     use_kernel=False)
+    kernel = lambda: ekf_tick.step(ecfg, st, twist, zs, valid, Q, R)
+    plain_fn = lambda: ekf_tick.reference_step(ecfg, st, twist, zs, valid,
+                                               Q, R)
     row = {"ms": cuda_ms(kernel, 50), "plain_ms": cuda_ms(plain_fn, 2, 3),
            "device_ms": profiled_device_ms(kernel, "ekf_tick_kernel", 20),
            **bound_of(*ekf_tick_work(ecfg.dim, C3, B3))}
@@ -2236,8 +2233,8 @@ def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
         mismatch["vs_path_a_valid"] += (b.valid != valid_all[t]).sum()
         against = [("vs_path_a", seg_pos)]
         if t % PLAIN_EVERY == 0:
-            plain = detect_landmarks(scans[t], lo, hi, segmented=False,
-                                     use_kernel=False, **kw)
+            plain = on_plain(detect_landmarks, scans[t], lo, hi,
+                             segmented=False, **kw)
             mismatch["vs_plain_valid"] += (b.valid != plain.valid).sum()
             against.append(("vs_plain", plain.positions))
         for name, pos in against:
@@ -2576,20 +2573,19 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
                                                      P3)[:6]
     calls = {
         "circle_moments": (
-            lambda: cmk.circle_moments_raw(pts, cnt, use_kernel=True),
-            lambda: cmk.circle_moments_raw(pts, cnt, use_kernel=False),
+            lambda: cmk.circle_moments_raw(pts, cnt),
+            lambda: on_plain(cmk.circle_moments_raw, pts, cnt),
             "circle_fit_kernel"),
         "circle_fit": (
-            lambda: cfk.circle_fit_raw(pts, cnt, valid, use_kernel=True),
-            lambda: cfk.circle_fit_raw(pts, cnt, valid, use_kernel=False),
+            lambda: cfk.circle_fit_raw(pts, cnt, valid),
+            lambda: on_plain(cfk.circle_fit_raw, pts, cnt, valid),
             "circle_fit_kernel"),
         "circle_fit_tail": (
-            lambda: cfk.fit_tail(*tail_in, use_kernel=True),
-            lambda: cfk.fit_tail(*tail_in, use_kernel=False),
+            lambda: cfk.fit_tail(*tail_in),
+            lambda: on_plain(cfk.fit_tail, *tail_in),
             "circle_fit_tail_kernel"),
         "segment_fit_inputs": (
-            lambda: pk.fit_inputs(st["scan"], lo, hi, C3, P3,
-                                  use_kernel=True),
+            lambda: pk.fit_inputs(st["scan"], lo, hi, C3, P3),
             lambda: clustering._segment_fit_inputs(st["scan"], lo,
                                                            hi, C3, P3),
             "segment_fit_inputs_kernel")}
@@ -2599,7 +2595,7 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
                        "device_ms": profiled_device_ms(fn, key, 50)}
                 for name, (fn, plain, key) in calls.items()}
     bounds = kernel_bounds(cnt)
-    fit = cfk.circle_fit_raw(pts, cnt, valid, use_kernel=True)
+    fit = cfk.circle_fit_raw(pts, cnt, valid)
     floor = fit_chain_floor(dev, fit[3], fit[4], fit[5], fit[2])
     for name in calls:
         d = per_call[name]["device_ms"]
@@ -2711,7 +2707,7 @@ def scan_checks(known_args, unk_args, same_input_tol, plan=None, small=None):
     checks = {}
     for name, args, kw in (("seq_scan", known_args, {}),
                            ("seq_scan_unknown", unk_args, {"known": False})):
-        got = sq.deferred_seq_scan(*args, use_kernel=True, **kw)
+        got = sq.deferred_seq_scan(*args, **kw)
         plain = sq.reference_seq_scan(*args, **kw)
         plain_t = sq.reference_seq_scan(*transposed_planes(args), **kw)
         exact = sq.reference_seq_scan(*in_f64(args), **kw)
@@ -2736,8 +2732,7 @@ def scan_checks(known_args, unk_args, same_input_tol, plan=None, small=None):
         del plain, plain_t, exact, planes
         if plan is None:
             continue
-        other = sq.deferred_seq_scan(*args, use_kernel=True, cluster=small,
-                                     **kw)
+        other = sq.deferred_seq_scan(*args, cluster=small, **kw)
         torch.cuda.synchronize()
         checks[name].update(
             bit_equal_cluster=[small, plan["cluster"]],
@@ -2818,14 +2813,13 @@ def phase_kernel_scaling(dev):
         full_map = scan_checks(known_args, unk_args, tol["full_map"])
 
         calls = {
-            "seq_scan": lambda: sq.deferred_seq_scan(*known_args,
-                                                     use_kernel=True),
+            "seq_scan": lambda: sq.deferred_seq_scan(*known_args),
             "seq_scan_unknown": lambda: sq.deferred_seq_scan(
-                *unk_args, known=False, use_kernel=True)}
+                *unk_args, known=False)}
         res = calls["seq_scan"]()
         tick_ops = blocked_ekf.grid_operands(*res[7:12])
         calls["grid_update"] = lambda: gu.fused_grid_update(
-            st.cov_mm[0], *tick_ops, use_kernel=True)
+            st.cov_mm[0], *tick_ops)
         work = serving_work(n)
         timing = {}
         for name, call in calls.items():
@@ -3333,12 +3327,12 @@ def config4_kernels(cfg, st, wl, Q, R):
         args = config4_scan_args(cfg, st, wl, FILL4, Q, R, known,
                                  nearest=not known)
         kw = {} if known else {"known": False}
-        got = sq.deferred_seq_scan(*args, use_kernel=True, **kw)
+        got = sq.deferred_seq_scan(*args, **kw)
         own_equal = True
         errs_t, errs, bad = {}, {}, []
         for b in range(B4):
             one = world_args(args, b)
-            alone = sq.deferred_seq_scan(*one, use_kernel=True, **kw)
+            alone = sq.deferred_seq_scan(*one, **kw)
             gb = [x[b] for x in got]
             own_equal &= all(torch.equal(x, y) for x, y in zip(gb, alone))
             e_t, bad_t = scan_compare(
@@ -3367,9 +3361,9 @@ def config4_kernels(cfg, st, wl, Q, R):
             ops = blocked_ekf.grid_operands(*got[7:])
             grid_in = args[7].reshape(B4, 2, 2, N, N)
             timing["seq_scan"] = (args, got)
-    cov = gu.fused_grid_update(grid_in.clone(), *ops, use_kernel=True)
+    cov = gu.fused_grid_update(grid_in.clone(), *ops)
     own = all(torch.equal(cov[b], gu.fused_grid_update(
-        grid_in[b].clone(), *(x[b] for x in ops), use_kernel=True))
+        grid_in[b].clone(), *(x[b] for x in ops)))
         for b in range(B4))
     err = max(float((cov[b] - gu.reference_grid_update(
         grid_in[b], *(x[b] for x in ops))).abs().max()) for b in range(B4))
@@ -3589,8 +3583,8 @@ def config4_kernel_rows(dev, timing, plan_kw):
             "ms": cuda_ms(lambda: sq.deferred_seq_scan(*args), 20),
             "device_ms": profiled_device_ms(
                 lambda: sq.deferred_seq_scan(*args), "seq_scan", 10),
-            "plain_ms": cuda_ms(lambda: sq.deferred_seq_scan(
-                *args, use_kernel=False), 1, 1)}}
+            "plain_ms": cuda_ms(lambda: on_plain(sq.deferred_seq_scan,
+                                                 *args), 1, 1)}}
     a, b = ops[0], ops[1]
     g4 = grid_in.reshape(B4 * 4, N, N)
     a4 = a[:, :, None].expand(B4, 2, 2, N, 2 * M).reshape(B4 * 4, N, 2 * M)
@@ -3869,7 +3863,7 @@ def shard_plane_kernel(cfg, st, wl, Q, R, dev):
         mesh=mesh)
     ops = blocked_ekf.grid_operands(*outs[7:], mesh=mesh)
     grid_in = p.cov_mm.reshape(L * B, 2, 2, Nl, N)
-    cov = gu.fused_grid_update(grid_in.clone(), *ops, use_kernel=True)
+    cov = gu.fused_grid_update(grid_in.clone(), *ops)
     err = float((cov - gu.reference_grid_update(grid_in, *ops)).abs().max())
     kinds = outs[11]
     res = {"plane_sets": L * B, "planes": list(grid_in.shape),
@@ -4588,7 +4582,7 @@ def phase_cov_batched(dev):
         del st
     del worlds
 
-    call = lambda: cu.fused_kalman_update(*ops, apply=apply, use_kernel=True)
+    call = lambda: cu.fused_kalman_update(*ops, apply=apply)
     K = ops[1] @ torch.linalg.inv(ops[2])
     shtT = ops[1].transpose(1, 2).contiguous()
     row = {"ms": cuda_ms(call, 20),
@@ -4710,22 +4704,22 @@ def tail_kernel_row(scn, scan):
     params = scn.world_params(device=scan.device)
     tail_in = clustering._segment_fit_inputs(
         scan, params.scan_min, params.scan_max, C3, P3)[:6]
-    got = cfk.fit_tail(*tail_in, use_kernel=True)
+    got = cfk.fit_tail(*tail_in)
     torch.cuda.synchronize()
-    want = cfk.fit_tail(*tail_in, use_kernel=False)
+    want = on_plain(cfk.fit_tail, *tail_in)
     C = got[2].numel()
     return {"C": C, "n_ok": int(got[2].sum()),
             "first_difference_vs_plain_chain": first_difference(got, want),
             "max_abs_err": max(float((a.double() - b.double()).abs()
                                      .nan_to_num(0.0).max())
                                for a, b in zip(got[:2], want[:2])),
-            "ms": cuda_ms(lambda: cfk.fit_tail(*tail_in, use_kernel=True),
+            "ms": cuda_ms(lambda: cfk.fit_tail(*tail_in),
                           20, 3),
             "device_ms": profiled_device_ms(
-                lambda: cfk.fit_tail(*tail_in, use_kernel=True),
+                lambda: cfk.fit_tail(*tail_in),
                 "circle_fit", 10),
-            "plain_ms": cuda_ms(lambda: cfk.fit_tail(*tail_in,
-                                                     use_kernel=False), 1, 3),
+            "plain_ms": cuda_ms(lambda: on_plain(cfk.fit_tail, *tail_in),
+                                1, 3),
             **bound_of((13 * 4 + 4 + 1) * C + 13 * C, TAIL_FLOPS * C)}
 
 
@@ -4875,9 +4869,8 @@ def edge_scan_checks(known_args, unk_args, plan):
     checks = {}
     for name, args, kw in (("seq_scan", known_args, {}),
                            ("seq_scan_unknown", unk_args, {"known": False})):
-        got = sq.deferred_seq_scan(*args, use_kernel=True, **kw)
-        other = sq.deferred_seq_scan(*args, use_kernel=True, cluster=small,
-                                     **kw)
+        got = sq.deferred_seq_scan(*args, **kw)
+        other = sq.deferred_seq_scan(*args, cluster=small, **kw)
         # the f64 plain version on the same inputs: every argument widened
         # but the planes, whose f32 columns it widens as it reads them
         wide = in_f64(args[:7]) + (args[7],) + in_f64(args[8:])
@@ -4919,7 +4912,7 @@ def edge_grid_check(planes, tick_ops, r0):
     A, Bm, crow, ccol, rowT, colT = tick_ops
     band = slice(r0, r0 + EDGE_BAND)
     before = planes[:, :, band].clone()
-    gu.fused_grid_update(planes, *tick_ops, use_kernel=True)
+    gu.fused_grid_update(planes, *tick_ops)
     torch.cuda.synchronize()
     err = 0.0
     step = min(EDGE_CHUNK, EDGE_BAND)
@@ -4947,15 +4940,13 @@ def edge_timing(planes, known_args, unk_args, tick_ops, plan, n):
     a4 = A[:, None].expand(2, 2, n, 2 * M).reshape(4, n, 2 * M)
     b4 = Bm[None].expand(2, 2, 2 * M, n).reshape(4, 2 * M, n)
     calls = {
-        "seq_scan": (lambda: sq.deferred_seq_scan(*known_args,
-                                                  use_kernel=True),
+        "seq_scan": (lambda: sq.deferred_seq_scan(*known_args),
                      lambda: sq.reference_seq_scan(*known_args), 30),
         "seq_scan_unknown": (
-            lambda: sq.deferred_seq_scan(*unk_args, known=False,
-                                         use_kernel=True),
+            lambda: sq.deferred_seq_scan(*unk_args, known=False),
             lambda: sq.reference_seq_scan(*unk_args, known=False), 30),
         "grid_update": (lambda: gu.fused_grid_update(
-            planes, *tick_ops, use_kernel=True), None, 3)}
+            planes, *tick_ops), None, 3)}
     out = {}
     for name, (call, plain, inner) in calls.items():
         key = "grid_update" if name == "grid_update" else "seq_scan"
@@ -5072,7 +5063,7 @@ def phase_edge(dev, ptxas_rows):
             ("skip", skip[-1]), ("match", match[0])])
         checks = edge_scan_checks(known_args, unk_args, plan)
         planes = st.cov_mm[0]
-        res = sq.deferred_seq_scan(*known_args, use_kernel=True)
+        res = sq.deferred_seq_scan(*known_args)
         tick_ops = blocked_ekf.grid_operands(*res[7:12])
         r0 = max(0, min(n - EDGE_BAND, int(st.n_seen[0]) + 4
                         - EDGE_BAND // 2))

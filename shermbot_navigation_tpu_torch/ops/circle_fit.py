@@ -106,27 +106,23 @@ def _fit_one(pts, count, valid):
     return _fit_tail(M, centroid, z_bar, count, valid)
 
 
-def fit_circles(clusters: Clusters, use_kernel: bool | None = None,
+def fit_circles(clusters: Clusters,
                 componentized: bool | None = None) -> CircleFits:
     """Batched circle fit over all cluster slots.
 
     By default (``componentized=None`` -> True) the fit is one pass of
     ``ops/kernels/circle_fit`` over the point buffer: moments and the
-    componentized eigen-chain. ``use_kernel`` follows the package rule
-    (``ops/kernels/__init__.py``): ``None`` launches the CUDA kernel for
-    clusters on the card and runs the plain version on the CPU, ``False``
-    the plain version anywhere, ``True`` demands the kernel. The kernels
-    take f32 only; an f64 buffer on the card needs ``use_kernel=False``.
+    componentized eigen-chain: the CUDA kernel for clusters on the card,
+    the plain version on the CPU (``ops/kernels/__init__.py``). The
+    kernels take f32 only; an f64 buffer on the card raises.
     ``componentized=False`` keeps the tensor-form tail (the A/B oracle)
     behind the moment-only kernel ``ops/kernels/circle_moments``."""
     comp = True if componentized is None else componentized
     if comp:
         center, radius, ok, _, _, _ = cfk.circle_fit_raw(
-            clusters.points, clusters.counts, clusters.valid,
-            use_kernel=use_kernel)
+            clusters.points, clusters.counts, clusters.valid)
         return CircleFits(center=center, radius=radius, valid=ok)
-    M, cent, zbar = cm.circle_moments(clusters.points, clusters.counts,
-                                      use_kernel=use_kernel)
+    M, cent, zbar = cm.circle_moments(clusters.points, clusters.counts)
     center, radius, ok = _fit_tail(M, cent, zbar, clusters.counts,
                                    clusters.valid)
     return CircleFits(center=center, radius=radius, valid=ok)

@@ -1,25 +1,42 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Routing rule shared by every wrapper here: ``use_kernel=None`` (auto) runs
-the CUDA kernel for a tensor on the card and the plain version for a tensor
-on the CPU; ``False`` runs the plain version anywhere; ``True`` demands the
-kernel. On a CUDA tensor a wrapper launches its kernel or raises -- it never
-falls back to the plain version on its own.
+Routing rule shared by every wrapper here: a tensor on the card runs the
+CUDA kernel, a tensor on the CPU runs the plain version. On a CUDA tensor a
+wrapper launches its kernel or raises -- it never falls back to the plain
+version on its own. No function above this package chooses between the two.
+
+The one exception is :func:`plain_versions`, a switch for tests and checks
+that hold a kernel to its plain version on the card: inside it every
+wrapper runs its plain version on whatever device its tensors are on. No
+program entry (the CLI, ``bench.py``, ``bench_megamap.py``, the benchmark
+cells) reaches it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
+_PLAIN = contextvars.ContextVar("plain_versions", default=False)
 
-def wants_kernel(x: torch.Tensor, use_kernel: bool | None, name: str) -> bool:
-    """Resolve a wrapper's ``use_kernel`` argument for operand ``x``."""
-    if use_kernel is None:
-        return x.is_cuda
-    if use_kernel and not x.is_cuda:
-        raise ValueError(f"{name}: use_kernel=True needs CUDA tensors, got "
-                         f"a tensor on {x.device}")
-    return bool(use_kernel)
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run every wrapper's plain version, on any device, inside the block;
+    the previous state comes back on exit, also after an exception."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
+def wants_kernel(x: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for operand ``x``: ``x`` is on
+    the card and :func:`plain_versions` is not active."""
+    return x.is_cuda and not _PLAIN.get()
 
 
 def require(cond: bool, name: str, what: str) -> None:

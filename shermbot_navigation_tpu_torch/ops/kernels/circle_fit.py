@@ -182,7 +182,7 @@ def _flat(t, lead, dtype, name, what):
     return t.reshape(-1).to(dtype).contiguous()
 
 
-def circle_fit_raw(points, counts, valid, use_kernel: bool | None = None):
+def circle_fit_raw(points, counts, valid):
     """``points (..., P, 2)``, ``counts (...,)`` integer, ``valid (...,)``
     bool -> ``(center (..., 2), radius (...,), ok (...,), m16 (..., 16),
     centroid (..., 2), zbar (...,))``: the whole fit of every cluster slot
@@ -190,7 +190,7 @@ def circle_fit_raw(points, counts, valid, use_kernel: bool | None = None):
     behind it (row-major, as ``circle_moments_raw`` gives them). Leading
     batch dimensions are flattened into the kernel's cluster axis."""
     name = "circle_fit"
-    if not wants_kernel(points, use_kernel, name):
+    if not wants_kernel(points):
         mc, cx, cy, zbar = _reference_raw(points, counts)
         center, radius, ok = _fit_tail_c(mc, cx, cy, zbar, counts, valid)
         return (center, radius, ok, torch.stack(mc, dim=-1),
@@ -232,14 +232,14 @@ def circle_fit_raw(points, counts, valid, use_kernel: bool | None = None):
 circle_fit_raw.launches = 0
 
 
-def fit_tail(m, cx, cy, zbar, count, valid, use_kernel: bool | None = None):
+def fit_tail(m, cx, cy, zbar, count, valid):
     """The fit from the moments: ``m (..., 16)`` row-major or ``(..., 10)``
     the distinct ones (zz, zx, zy, z, xx, xy, x, yy, y, n; a view at a row
     stride, such as columns of a wider tensor, is read in place),
     ``cx``, ``cy``, ``zbar (...,)``, ``count (...,)`` integer, ``valid
     (...,)`` bool -> ``(center (..., 2), radius (...,), ok (...,))``."""
     name = "circle_fit_tail"
-    if not wants_kernel(m, use_kernel, name):
+    if not wants_kernel(m):
         return _fit_tail_c(components(m), cx, cy, zbar, count, valid)
     lead = m.shape[:-1]
     K = m.shape[-1]

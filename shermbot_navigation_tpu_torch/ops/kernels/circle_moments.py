@@ -70,17 +70,17 @@ def reference_circle_moments(points, counts):
     return M, torch.stack([cx, cy], dim=-1), zbar
 
 
-def circle_moments_raw(points, counts, use_kernel: bool | None = None):
+def circle_moments_raw(points, counts):
     """``points (..., P, 2)``, ``counts (...,)`` integer -> ``(M16 (..., 16)``
     row-major flat, ``centroid (..., 2)``, ``zbar (...,))``. Leading batch
     dimensions are flattened into the kernel's cluster axis.
 
-    ``use_kernel`` follows the package rule (``ops/kernels/__init__.py``):
-    auto launches the CUDA kernel for CUDA points and runs the plain
-    version on the CPU; the kernel takes f32 only and raises otherwise.
+    Routed by the package rule (``ops/kernels/__init__.py``): the CUDA
+    kernel for CUDA points, the plain version on the CPU; the kernel takes
+    f32 only and raises otherwise.
     ``circle_moments_raw.launches`` counts kernel launches."""
     name = "circle_moments"
-    if not wants_kernel(points, use_kernel, name):
+    if not wants_kernel(points):
         mc, cx, cy, zbar = _reference_raw(points, counts)
         return (torch.stack(mc, dim=-1), torch.stack([cx, cy], dim=-1),
                 zbar)
@@ -120,8 +120,8 @@ def circle_moments_raw(points, counts, use_kernel: bool | None = None):
 circle_moments_raw.launches = 0
 
 
-def circle_moments(points, counts, use_kernel: bool | None = None):
+def circle_moments(points, counts):
     """Tensor-output wrapper: ``(M (..., 4, 4), centroid (..., 2),
     zbar (...,))``."""
-    m, cent, zbar = circle_moments_raw(points, counts, use_kernel=use_kernel)
+    m, cent, zbar = circle_moments_raw(points, counts)
     return m.reshape(*m.shape[:-1], 4, 4), cent, zbar

@@ -93,20 +93,20 @@ def _launch(cov, sht, psi_inv, dz, mean, apply):
                          mutates_args=())
 def _cov_update(cov: torch.Tensor, sht: torch.Tensor, psi_inv: torch.Tensor,
                 dz: torch.Tensor, mean: torch.Tensor,
-                apply: Optional[torch.Tensor], use_kernel: Optional[bool]
+                apply: Optional[torch.Tensor]
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    if not wants_kernel(cov, use_kernel, "cov_update"):
+    if not wants_kernel(cov):
         return reference_kalman_update(cov, sht, psi_inv, dz, mean, apply)
     return _launch(cov, sht, psi_inv, dz, mean, apply)
 
 
 @_cov_update.register_fake
-def _(cov, sht, psi_inv, dz, mean, apply, use_kernel):
+def _(cov, sht, psi_inv, dz, mean, apply):
     return torch.empty_like(cov), torch.empty_like(mean)
 
 
 @_cov_update.register_vmap
-def _(info, in_dims, cov, sht, psi_inv, dz, mean, apply, use_kernel):
+def _(info, in_dims, cov, sht, psi_inv, dz, mean, apply):
     """B worlds: the batch axis first on every operand (an unbatched one
     broadcast), then one call of the op -- one launch on the card."""
     def lead(x, dim):
@@ -116,22 +116,21 @@ def _(info, in_dims, cov, sht, psi_inv, dz, mean, apply, use_kernel):
             else x.movedim(dim, 0)
     args = [lead(x, d) for x, d in
             zip((cov, sht, psi_inv, dz, mean, apply), in_dims)]
-    return _cov_update(*args, use_kernel), (0, 0)
+    return _cov_update(*args), (0, 0)
 
 
-def fused_kalman_update(cov, sht, psi_inv, dz, mean, apply=None,
-                        use_kernel: bool | None = None):
+def fused_kalman_update(cov, sht, psi_inv, dz, mean, apply=None):
     """Apply the fused update; returns ``(cov', mean')`` as new tensors.
 
     ``cov`` (D, D) f32 with D % 128 == 0, ``sht`` (D, 2), ``psi_inv``
     (2, 2), ``dz`` (2,), ``mean`` (D,), ``apply`` a () bool tensor or
     ``None`` (always); or each with a leading B (B worlds, one launch),
-    which ``torch.func.vmap`` of a one-world call gives. ``use_kernel``
-    follows the package rule (``ops/kernels/__init__.py``): auto launches
-    the CUDA kernel for a CUDA ``cov`` and runs the plain version on the
-    CPU. ``fused_kalman_update.launches`` counts kernel launches.
+    which ``torch.func.vmap`` of a one-world call gives. Routed by the
+    package rule (``ops/kernels/__init__.py``): the CUDA kernel for a CUDA
+    ``cov``, the plain version on the CPU. ``fused_kalman_update.launches``
+    counts kernel launches.
     """
-    return _cov_update(cov, sht, psi_inv, dz, mean, apply, use_kernel)
+    return _cov_update(cov, sht, psi_inv, dz, mean, apply)
 
 
 fused_kalman_update.launches = 0

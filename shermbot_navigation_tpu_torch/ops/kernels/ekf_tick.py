@@ -13,11 +13,11 @@ version, :func:`reference_step`, is those two functions; the kernel
 repeats their operations one rounding at a time.
 
 It replaces no TPU kernel (the JAX package leaves the tick to XLA). The
-wrapper follows the package rule (``ops/kernels/__init__.py``):
-``use_kernel=None`` launches the kernel for a CUDA state and runs the
-plain version on the CPU; on a CUDA operand the kernel does not take (not
-float32, a padded state, no :func:`launch_plan` for its D and M) it
-raises, never falls back. ``step.launches`` counts kernel launches.
+wrapper follows the package rule (``ops/kernels/__init__.py``): the
+kernel for a CUDA state, the plain version on the CPU; on a CUDA operand
+the kernel does not take (not float32, a padded state, no
+:func:`launch_plan` for its D and M) it raises, never falls back.
+``step.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -138,8 +138,7 @@ def _launch(config, st, twist, zs, valid, Q, R, ids, margins):
 
 
 def step(config: EKFConfig, st: ekf_batch.BatchState, twist, zs, valid, Q,
-         R, ids=None, margins: list | None = None,
-         use_kernel: bool | None = None) -> ekf_batch.BatchState:
+         R, ids=None, margins: list | None = None) -> ekf_batch.BatchState:
     """One tick of B worlds; returns the new state (new tensors).
 
     ``twist`` (B, 3), ``zs`` (B, M, 2), ``valid`` (B, M) bool, ``Q`` (3, 3),
@@ -148,7 +147,7 @@ def step(config: EKFConfig, st: ekf_batch.BatchState, twist, zs, valid, Q,
     the kernel appends each world's smallest relative gate margin of the
     tick, one (B,) tensor, where the plain version appends one a
     measurement; their ``amin`` agrees."""
-    if not wants_kernel(st.cov, use_kernel, "ekf_tick"):
+    if not wants_kernel(st.cov):
         return reference_step(config, st, twist, zs, valid, Q, R, ids,
                               margins)
     return _launch(config, st, twist, zs, valid, Q, R, ids, margins)

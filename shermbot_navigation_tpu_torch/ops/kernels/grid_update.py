@@ -122,19 +122,18 @@ def kernel_operands(cov, a, b, crow, ccol, rowt, colt):
     return checked_operands(name, cov.device, spec), nl, n, m
 
 
-def fused_grid_update(cov, a, b, crow, ccol, rowt, colt,
-                      use_kernel: bool | None = None):
+def fused_grid_update(cov, a, b, crow, ccol, rowt, colt):
     """Apply the grid pass to ``cov`` IN PLACE and return it.
 
     Operands as in :func:`reference_grid_update`: one world, or B worlds
     with a leading B on every operand (one launch for all of them).
-    ``use_kernel`` follows the package rule (``ops/kernels/__init__.py``):
-    auto launches the CUDA kernel for a CUDA ``cov`` (f32 only; anything
-    else raises) and runs the plain version on the CPU.
+    Routed by the package rule (``ops/kernels/__init__.py``): the CUDA
+    kernel for a CUDA ``cov`` (f32 only; anything else raises), the plain
+    version on the CPU.
     ``fused_grid_update.launches`` counts kernel launches.
     """
     name = "grid_update"
-    if not wants_kernel(cov, use_kernel, name):
+    if not wants_kernel(cov):
         cov.copy_(reference_grid_update(cov, a, b, crow, ccol, rowt, colt))
         return cov
     ops, nl, n, m = kernel_operands(cov, a, b, crow, ccol, rowt, colt)

@@ -16,12 +16,11 @@ gives the bits of the plain version whose one-hot products add the rays in
 ray order. cuBLAS's products on the card mostly take that order, but not
 always: on config 3's scans at B = 1024, 0.42% of the slots' moments
 differ, by up to 2e-6, within float32's bound for another order. The
-wrapper follows the package rule (``ops/kernels/__init__.py``):
-``use_kernel=None`` launches the kernel for scans on the card and runs the
-plain version on the CPU; a scan the kernel does not take (not float32,
-not contiguous, no :func:`launch_plan` for its n and C) raises, never
-falls back.
-``fit_inputs.launches`` counts kernel launches.
+wrapper follows the package rule (``ops/kernels/__init__.py``): the
+kernel for scans on the card, the plain version on the CPU; a scan the
+kernel does not take (not float32, not contiguous, no :func:`launch_plan`
+for its n and C) raises, never falls back. ``fit_inputs.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -115,7 +114,7 @@ def _launch(ranges, min_range, max_range, C, P, std_threshold_deg,
 
 def fit_inputs(ranges, min_range, max_range, max_clusters: int,
                max_points: int, std_threshold_deg: float = 10.0,
-               margins: dict | None = None, use_kernel: bool | None = None):
+               margins: dict | None = None):
     """Scans ``ranges (..., n)`` -> ``(moments (..., C, 10), cx, cy, zbar,
     count (int32), valid, is_circle)`` for ``C = max_clusters`` slots of
     ``max_points`` rows, as ``clustering._segment_fit_inputs``.
@@ -123,7 +122,7 @@ def fit_inputs(ranges, min_range, max_range, max_clusters: int,
     on the scans' device. ``margins`` (a dict, diagnostics) receives the
     smallest distances of a split and a circle decision to their
     thresholds, as there."""
-    if not wants_kernel(ranges, use_kernel, NAME):
+    if not wants_kernel(ranges):
         return _segment_fit_inputs(ranges, min_range, max_range,
                                    max_clusters, max_points,
                                    std_threshold_deg, margins)

@@ -469,8 +469,7 @@ def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
                       match_gate: float = 0.01, new_gate: float = 60.0,
                       wrap_innovation: bool = False,
                       symmetrize: bool = True,
-                      use_kernel: bool | None = None, gate_margins=None,
-                      cluster: int | None = None):
+                      gate_margins=None, cluster: int | None = None):
     """Run the tick's measurement scan (comp layouts), for one robot or
     for B worlds at once.
 
@@ -486,9 +485,9 @@ def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
     Kb (M, 4, N), HSb (M, 4, N), CRb (M, 4, N), gb (M,), kindb (M,)),
     each with the leading B for B worlds.
 
-    ``use_kernel`` follows the package rule (``ops/kernels/__init__.py``):
-    auto launches the CUDA kernel for CUDA operands (f32 only; anything
-    else raises) and the plain version on the CPU. The kernel takes B
+    Routed by the package rule (``ops/kernels/__init__.py``): the CUDA
+    kernel for CUDA operands (f32 only; anything else raises), the plain
+    version on the CPU. The kernel takes B
     worlds in one launch, a cluster a world; the plain version runs the
     worlds one after another. ``deferred_seq_scan.launches`` counts
     kernel launches. ``gate_margins`` is :func:`reference_seq_scan`'s
@@ -498,7 +497,7 @@ def deferred_seq_scan(mean_r, mm2, cov_rr, rm6, diag4, seen, n_seen, mm0p,
     """
     name = "seq_scan"
     batched = mm2.dim() == 3
-    if not wants_kernel(mm2, use_kernel, name):
+    if not wants_kernel(mm2):
         kw = dict(known=known, match_gate=match_gate, new_gate=new_gate,
                   wrap_innovation=wrap_innovation, symmetrize=symmetrize)
         if not batched:

@@ -56,25 +56,23 @@ def _compact(center, ok):
 def _detect_segmented(ranges, min_range, max_range, max_clusters: int,
                       max_points: int, max_radius: float,
                       std_threshold_deg: float = 10.0,
-                      margins: dict | None = None,
-                      use_kernel: bool | None = None) -> Detections:
+                      margins: dict | None = None) -> Detections:
     """The whole perception stage as SEGMENT REDUCTIONS over rays: no
     ``(C, P, 2)`` point buffer; the quantities the buffered path reduces
     from the buffer (endpoints, inscribed angles, centroid, moments) come
     straight from the rays (``ops/kernels/perception.fit_inputs``: one
     kernel on the card, the ``(C, n)`` one-hot products of
     :func:`_segment_fit_inputs` on the CPU) and feed the componentized fit
-    tail (``ops/kernels/circle_fit.fit_tail``); ``use_kernel`` routes both
-    as the package rule says. Semantics are the buffered path's, including
-    the wraparound append of ray n-1 to cluster 0 (ref :169-174), the
-    ``max_points`` capacity drop, and the divide-by-full-count centroid."""
+    tail (``ops/kernels/circle_fit.fit_tail``). Semantics are the buffered
+    path's, including the wraparound append of ray n-1 to cluster 0 (ref
+    :169-174), the ``max_points`` capacity drop, and the divide-by-full-count
+    centroid."""
     with stage("perception.fit_inputs", ranges.device):
         mom, cx, cy, zbar, count, valid, is_circle = pk.fit_inputs(
             ranges, min_range, max_range, max_clusters, max_points,
-            std_threshold_deg, margins, use_kernel=use_kernel)
+            std_threshold_deg, margins)
     with stage("perception.circle_fit", ranges.device):
-        center, radius, okf = cfk.fit_tail(mom, cx, cy, zbar, count, valid,
-                                           use_kernel=use_kernel)
+        center, radius, okf = cfk.fit_tail(mom, cx, cy, zbar, count, valid)
     ok = is_circle & okf & (radius <= max_radius)
     return _compact(center, ok)
 
@@ -83,7 +81,6 @@ def detect_landmarks(ranges, min_range, max_range,
                      max_clusters: int = 16, max_points: int = 64,
                      max_radius: float = 1.0,
                      segmented: bool | None = None,
-                     use_kernel: bool | None = None,
                      margins: dict | None = None) -> Detections:
     """Full perception stage for scans ``ranges (..., n)``.
 
@@ -92,18 +89,17 @@ def detect_landmarks(ranges, min_range, max_range,
     ``segmented=False`` is the buffered path (``cluster_scan`` ->
     ``classify_clusters`` -> ``fit_circles``): the parity oracle, and the
     path for users who need the ``Clusters`` buffer itself; its fit is
-    that module's whole-fit kernel. ``use_kernel`` routes either as the
-    package rule says (``ops/kernels/__init__.py``). ``margins`` (a dict,
-    diagnostics) receives the smallest distances of a split decision and a
-    circle decision to their thresholds."""
+    that module's whole-fit kernel. ``margins`` (a dict, diagnostics)
+    receives the smallest distances of a split decision and a circle
+    decision to their thresholds."""
     if segmented is None or segmented:
         return _detect_segmented(ranges, min_range, max_range,
                                  max_clusters, max_points, max_radius,
-                                 margins=margins, use_kernel=use_kernel)
+                                 margins=margins)
     clusters = cluster_scan(ranges, min_range, max_range,
                             max_clusters=max_clusters, max_points=max_points,
                             margins=margins)
     is_circle = classify_clusters(clusters, margins=margins)
-    fits = fit_circles(clusters, use_kernel=use_kernel)
+    fits = fit_circles(clusters)
     ok = is_circle & fits.valid & (fits.radius <= max_radius)
     return _compact(fits.center, ok)

@@ -90,22 +90,19 @@ def measurements(wl: BigMapWorkload, t: int):
     return zs, ids, wl.cmd[t % wl.cmd.shape[0]]
 
 
-def _make_step(cfg, M, device, known, deferred, seq_kernel, grid_kernel,
-               gate_margins=None, mesh=None):
+def _make_step(cfg, M, device, known, deferred, gate_margins=None,
+               mesh=None):
     if deferred:
         return blocked_ekf.make_deferred_step(
-            cfg, M, device, known=known, seq_kernel=seq_kernel,
-            grid_kernel=grid_kernel, gate_margins=gate_margins, mesh=mesh)
-    if seq_kernel or grid_kernel or gate_margins is not None:
-        raise ValueError("the sequential tick has no kernels and no gate "
-                         "margins")
+            cfg, M, device, known=known, gate_margins=gate_margins, mesh=mesh)
+    if gate_margins is not None:
+        raise ValueError("the sequential tick has no gate margins")
     return blocked_ekf.make_sequential_step(cfg, M, device, known=known,
                                             mesh=mesh)
 
 
 def make_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
-                deferred: bool = True, seq_kernel: bool | None = None,
-                grid_kernel: bool | None = None, mesh=None):
+                deferred: bool = True, mesh=None):
     """Build ``run(state, workload, Q, R, t0, ticks) -> state``: the tick
     applied ``ticks`` times to a state of ``batch`` worlds, the
     measurements made on the device each tick and broadcast to every
@@ -114,8 +111,7 @@ def make_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
     ``blocked_ekf.make_sequential_step``; the same semantics. With
     ``mesh`` the state is this process's map shards. The grid is updated
     in place."""
-    step = _make_step(cfg, M, device, True, deferred, seq_kernel,
-                      grid_kernel, mesh=mesh)
+    step = _make_step(cfg, M, device, True, deferred, mesh=mesh)
     valid = torch.ones((batch, M), dtype=torch.bool, device=device)
 
     def run(state, wl: BigMapWorkload, Q, R, t0: int, ticks: int):
@@ -129,16 +125,13 @@ def make_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
 
 
 def make_unknown_runner(cfg: EKFConfig, M: int, device, batch: int = 1,
-                        deferred: bool = True,
-                        seq_kernel: bool | None = None,
-                        grid_kernel: bool | None = None, gate_margins=None,
+                        deferred: bool = True, gate_margins=None,
                         mesh=None):
     """Like :func:`make_runner` with UNKNOWN association: the same
     measurements without their ids, each gated by the reference's
     first-hit Mahalanobis scan (``gate_margins`` as in
     ``blocked_ekf.make_deferred_step``, deferred tick only)."""
-    step = _make_step(cfg, M, device, False, deferred, seq_kernel,
-                      grid_kernel, gate_margins, mesh)
+    step = _make_step(cfg, M, device, False, deferred, gate_margins, mesh)
     valid = torch.ones((batch, M), dtype=torch.bool, device=device)
 
     def run(state, wl: BigMapWorkload, Q, R, t0: int, ticks: int):
@@ -163,8 +156,7 @@ def noise(dtype=torch.float32, device=None):
 
 def run_bigmap(N: int = 2048, T: int = 32, M: int = 8, batch: int = 1,
                deferred: bool = True, dtype=torch.float32, device=None,
-               seq_kernel: bool | None = None,
-               grid_kernel: bool | None = None, mesh=None):
+               mesh=None):
     """End-to-end config-4 run of ``batch`` worlds (the JAX
     ``run_bigmap``): on ``device`` (``None``: the card), or over ``mesh``'s
     map shards (on its device), when the returned state is this process's
@@ -174,7 +166,6 @@ def run_bigmap(N: int = 2048, T: int = 32, M: int = 8, batch: int = 1,
     cfg = EKFConfig(num_landmarks=N)
     wl = make_workload(N, T, M, dtype=dtype, device=device)
     runner = make_runner(cfg, M, device, batch=batch, deferred=deferred,
-                         seq_kernel=seq_kernel, grid_kernel=grid_kernel,
                          mesh=mesh)
     state = blocked_ekf.init(cfg, batch, dtype=dtype, device=device)
     if mesh is not None:

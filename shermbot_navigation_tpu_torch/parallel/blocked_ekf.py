@@ -683,9 +683,7 @@ def _check(state: BlockedState, zs, device, M, mesh=None):
 
 
 def make_deferred_step(config: EKFConfig, max_meas: int, device,
-                       known: bool = True,
-                       seq_kernel: bool | None = None,
-                       grid_kernel: bool | None = None, gate_margins=None,
+                       known: bool = True, gate_margins=None,
                        decisions=None, mesh=None):
     """Build the deferred tick for B worlds, known or unknown association
     (the JAX ``make_sharded_deferred_step`` /
@@ -701,11 +699,8 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
     semantics as :func:`make_sequential_step`. Kernel 1 (the grid pass)
     is launched once a tick for all B worlds and local shards; kernel 2
     (the scan) once a tick at one map shard, while at S > 1 the scan is
-    the plain one with the mesh's collectives (``seq_kernel=True`` raises
-    there). ``seq_kernel`` / ``grid_kernel`` route them as in
-    ``ops/kernels``: ``None`` runs the CUDA kernel on the card and the
-    plain version on the CPU; ``False`` forces the plain version;
-    ``True`` demands the kernel. ``gate_margins`` (a list; unknown
+    the plain one with the mesh's collectives. On the CPU both are their
+    plain versions (``ops/kernels``). ``gate_margins`` (a list; unknown
     association on the plain scan, one shard) collects each
     measurement's smallest relative margin to a gate
     (``seq_scan.reference_seq_scan``; (B,) a measurement). ``decisions``
@@ -721,11 +716,6 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
     device = resolve(device)
     M = max_meas
     S = _built_for(config, mesh)
-    if S > 1 and seq_kernel:
-        raise ValueError(
-            f"seq_kernel runs the measurement scan of one map shard; at "
-            f"map={S} the scan is the plain one with collectives (as the "
-            f"JAX package keeps its XLA scan there)")
     if S > 1 and gate_margins is not None:
         raise ValueError("gate_margins needs one map shard")
     gates = dict(known=known, match_gate=config.match_gate,
@@ -749,8 +739,8 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
             mm2, rm6, diag4, seen, mm0p = map(one, sharded)
             outs = list(deferred_seq_scan(
                 st.mean_r, mm2, st.cov_rr, rm6, diag4, seen, st.n_seen,
-                mm0p, zs, valid, ids, R, use_kernel=seq_kernel,
-                gate_margins=gate_margins, **gates))
+                mm0p, zs, valid, ids, R, gate_margins=gate_margins,
+                **gates))
             if mesh is not None:
                 for i in (1, 3, 4, 5):
                     outs[i] = outs[i][None]
@@ -767,8 +757,7 @@ def make_deferred_step(config: EKFConfig, max_meas: int, device,
                                  mesh if S > 1 else None)
         # every local shard's and world's planes: one launch a tick
         with stage("blocked.grid_pass", device):
-            cov = fused_grid_update(cov_mm0.view(-1, 2, 2, Nl, N), *operands,
-                                    use_kernel=grid_kernel)
+            cov = fused_grid_update(cov_mm0.view(-1, 2, 2, Nl, N), *operands)
         return _replicas_in(BlockedState(
             mean_r=mr_o,
             mean_m=mm2_o.transpose(-1, -2).contiguous(),

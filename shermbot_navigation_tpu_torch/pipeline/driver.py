@@ -39,7 +39,6 @@ from ..ops import diff_drive as dd
 from ..ops.kernels import ekf_tick
 from ..ops.landmark_detection import detect_landmarks
 from ..sim import tube_world as tw
-from ..utils import tracing
 from ..utils.tracing import stage
 from .config import ScenarioConfig
 from .metrics import nees as nees_fn
@@ -311,9 +310,7 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
 
     The filter's tick is one kernel launch for all B worlds on the card
     (``ops/kernels/ekf_tick``; it raises on a state it does not take,
-    such as float64) and the plain ``ekf_batch`` tick on the CPU; counted
-    once a run in ``filter.fused_runs`` or ``filter.plain_runs``
-    (``utils/tracing.counters``)."""
+    such as float64) and the plain ``ekf_batch`` tick on the CPU."""
     device = resolve(device)
     params = scn.world_params(dtype, device)
     Q, R = scn.noise_matrices(dtype, device)
@@ -324,8 +321,6 @@ def run_scenario_batch_lanes(scn: ScenarioConfig, noise, batch: int,
     src = NoiseSource(scn, noise, (B,), dtype, device)
 
     M = scn.max_clusters if scn.use_lidar else len(scn.tubes)
-    tracing.count("filter.fused_runs" if device.type == "cuda"
-                  else "filter.plain_runs", 1)
     # known association: the ids are the measurement order
     ids = torch.arange(M, dtype=torch.int32, device=device).expand(
         B, M).contiguous() if scn.known_association else None

@@ -68,25 +68,22 @@ def state_to_dense(config: EKFConfig, bst: blocked_ekf.BlockedState
 
 
 def make_serving_step(config: EKFConfig, max_meas: int, known: bool = True,
-                      dtype=torch.float32, device=None,
-                      seq_kernel: bool | None = None,
-                      grid_kernel: bool | None = None, donate: bool = True):
+                      dtype=torch.float32, device=None, donate: bool = True):
     """Build the single-robot serving tick on ``device`` (``None`` is the
     card, ``device.resolve``).
 
     Returns ``tick(state, twist (3,), zs (M, 2), valid (M,), ids (M,),
     Q, R) -> state`` for ``known=True``, and ``tick(state, twist, zs,
     valid, Q, R)`` for ``known=False`` (the reference's Mahalanobis
-    first-hit gating). The kernels route as in ``ops/kernels`` (``None`` =
-    the CUDA kernels on the card, the plain versions on the CPU).
+    first-hit gating). The kernels run on the card and their plain versions
+    on the CPU (``ops/kernels``).
     ``donate=True`` lets the tick update the input state's grid in place
     (serving states are linear chains); ``donate=False`` copies it first.
     ``dtype`` is the state's dtype (the kernels take f32 only).
     """
     device = resolve(device)
     step = blocked_ekf.make_deferred_step(config, max_meas, device,
-                                          known=known, seq_kernel=seq_kernel,
-                                          grid_kernel=grid_kernel)
+                                          known=known)
 
     def tick(state, twist, zs, valid, *rest):
         if state.cov_mm.dtype != dtype:
@@ -116,7 +113,7 @@ class ServingEngine:
 
     def __init__(self, config: EKFConfig, max_meas: int, Q, R,
                  known: bool = True, robot_pose=None, dense_state=None,
-                 dtype=torch.float32, device=None, state=None, **kw):
+                 dtype=torch.float32, device=None, state=None):
         self.config = config
         self.max_meas = max_meas
         self.known = known
@@ -141,8 +138,7 @@ class ServingEngine:
             self.state = blocked_ekf.init(config, 1, robot_pose=robot_pose,
                                           dtype=dtype, device=self.device)
         self._tick = make_serving_step(config, max_meas, known=known,
-                                       dtype=dtype, device=self.device,
-                                       **kw)
+                                       dtype=dtype, device=self.device)
 
     def tick(self, twist, zs, valid=None, ids=None):
         """One tick; ``ids`` is required with known association and

@@ -227,30 +227,20 @@ def _scan(B, seed):
 
 
 def test_segmented_detection_plain_route_is_bit_equal():
-    """``detect_landmarks`` (segmented) routes its fit through
-    ``fit_tail``: on the CPU the default and ``use_kernel=False`` are the
-    same computation, bit for bit, and ``use_kernel=True`` raises."""
+    """``detect_landmarks`` (segmented) routes its front end through
+    ``perception.fit_inputs`` and its fit through ``fit_tail``: on the CPU
+    it is the explicit plain chain (``_segment_fit_inputs`` ->
+    ``_fit_tail_c`` -> ``_compact``), bit for bit."""
     scan = _scan(3, 5)
     a = tld.detect_landmarks(scan, 0.05, 1.0)
-    b = tld.detect_landmarks(scan, 0.05, 1.0, use_kernel=False)
+    mom, cx, cy, zbar, count, valid, is_circle = tld._segment_fit_inputs(
+        scan, 0.05, 1.0, 16, 64, 10.0)
+    center, radius, okf = cfk._fit_tail_c(cfk.components(mom), cx, cy, zbar,
+                                          count, valid)
+    b = tld._compact(center, is_circle & okf & (radius <= 1.0))
     assert torch.equal(a.positions, b.positions)
     assert torch.equal(a.valid, b.valid)
     assert a.valid.sum(-1).tolist() == [3, 3, 3]
-    with pytest.raises(ValueError, match="CUDA"):
-        tld.detect_landmarks(scan, 0.05, 1.0, use_kernel=True)
-
-
-def test_use_kernel_true_needs_cuda_tensors():
-    pts, counts, valid = _torch(*_clusters("random", 4, np.float32, 6))
-    with pytest.raises(ValueError, match="CUDA"):
-        cfk.circle_fit_raw(pts, counts, valid, use_kernel=True)
-    m16 = tcm.circle_moments_raw(pts, counts)[0]
-    with pytest.raises(ValueError, match="CUDA"):
-        cfk.fit_tail(m16, *(torch.zeros(4),) * 3, counts, valid,
-                     use_kernel=True)
-    with pytest.raises(ValueError, match="CUDA"):
-        tld.detect_landmarks(_scan(1, 6), 0.05, 1.0, segmented=False,
-                             use_kernel=True)
 
 
 def test_trace_follows_the_tail():

@@ -105,13 +105,6 @@ def test_rows_past_count_are_ignored_and_batch_dims_flatten():
         assert torch.equal(x, z.reshape(x.shape))
 
 
-def test_use_kernel_true_needs_cuda_tensors():
-    pts, counts = _clusters(2, 8, 4, np.float32)
-    with pytest.raises(ValueError, match="CUDA"):
-        tcm.circle_moments_raw(torch.from_numpy(pts),
-                               torch.from_numpy(counts), use_kernel=True)
-
-
 # ---------------------------------------------------------------------------
 # ops/circle_fit
 # ---------------------------------------------------------------------------
@@ -124,13 +117,13 @@ def _both(pts, counts, valid=None):
 
 
 def test_fit_circles_matches_pallas_interpret_route():
-    """``fit_circles(use_kernel=False)`` against JAX
+    """``fit_circles`` (its plain version on the CPU) against JAX
     ``fit_circles(use_pallas=True, interpret=True)`` in f32: ``valid``
     equal, centre and radius at the JAX package's kernel-vs-XLA pin."""
     pts, counts = _clusters(16, 64, 5, np.float32)
     jc, tc = _both(pts, counts)
     want = jcf.fit_circles(jc, use_pallas=True, interpret=True)
-    got = tcf.fit_circles(tc, use_kernel=False)
+    got = tcf.fit_circles(tc)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     np.testing.assert_allclose(got.center.numpy(), want.center, atol=1e-4)
     np.testing.assert_allclose(got.radius.numpy(), want.radius, atol=1e-4)

@@ -49,7 +49,7 @@ import pytest
 import torch
 
 from _torch_parity import grid_operands, scan_inputs, unknown_scan_inputs
-from shermbot_navigation_tpu_torch.models import ekf_slam
+from shermbot_navigation_tpu_torch.models import ekf_batch, ekf_slam
 from shermbot_navigation_tpu_torch.models import pose_graph, schur
 from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
 from shermbot_navigation_tpu_torch.ops import circle_fit, landmark_detection
@@ -57,8 +57,10 @@ from shermbot_navigation_tpu_torch.ops.clustering import Clusters
 from shermbot_navigation_tpu_torch.ops.kernels import circle_fit as cfk
 from shermbot_navigation_tpu_torch.ops.kernels import circle_moments as tcm
 from shermbot_navigation_tpu_torch.ops.kernels import cov_update as tcu
+from shermbot_navigation_tpu_torch.ops.kernels import ekf_tick
 from shermbot_navigation_tpu_torch.ops.kernels import grid_update as tgu
 from shermbot_navigation_tpu_torch.ops.kernels import perception
+from shermbot_navigation_tpu_torch.ops.kernels import plain_versions
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as tsq
 from shermbot_navigation_tpu_torch.parallel import bigmap, blocked_ekf
 from shermbot_navigation_tpu_torch.parallel import megamap, schur_dist
@@ -285,15 +287,15 @@ def test_serving_kernel_path_matches_plain_path(dev):
     Q, R = bigmap.noise(device=dev)
     wl = bigmap.make_workload(N, T, M, device=dev)
     engines = [serving.ServingEngine(cfg, M, Q, R, device=dev,
-                                     robot_pose=[0.0, 0.0, 0.0],
-                                     seq_kernel=k, grid_kernel=k)
-               for k in (None, False)]
+                                     robot_pose=[0.0, 0.0, 0.0])
+               for _ in range(2)]
     launches = (tgu.fused_grid_update.launches,
                 tsq.deferred_seq_scan.launches)
     for t in range(T):
         zs, ids, tw = bigmap.measurements(wl, t)
-        for e in engines:
-            e.tick(tw, zs, ids=ids)
+        engines[0].tick(tw, zs, ids=ids)
+        with plain_versions():
+            engines[1].tick(tw, zs, ids=ids)
     assert (tgu.fused_grid_update.launches - launches[0],
             tsq.deferred_seq_scan.launches - launches[1]) == (T, T)
     a, b = engines[0].state, engines[1].state
@@ -368,14 +370,14 @@ def test_unknown_serving_kernel_path_matches_plain_path(dev):
     Q, R = bigmap.noise(device=dev)
     wl = bigmap.make_workload(N, T, M, device=dev)
     engines = [serving.ServingEngine(cfg, M, Q, R, device=dev, known=False,
-                                     robot_pose=[0.0, 0.0, 0.0],
-                                     seq_kernel=k, grid_kernel=k)
-               for k in (None, False)]
+                                     robot_pose=[0.0, 0.0, 0.0])
+               for _ in range(2)]
     before = tsq.deferred_seq_scan.launches
     for t in range(T):
         zs, _, tw = bigmap.measurements(wl, t)
-        for e in engines:
-            e.tick(tw, zs)
+        engines[0].tick(tw, zs)
+        with plain_versions():
+            engines[1].tick(tw, zs)
         assert torch.equal(engines[0].state.seen, engines[1].state.seen)
     assert tsq.deferred_seq_scan.launches - before == T
     a, b = engines[0].state, engines[1].state
@@ -438,7 +440,8 @@ def test_circle_moments_kernel_matches_plain(dev, lead, P):
     got = tcm.circle_moments_raw(pts, cnt)
     torch.cuda.synchronize()
     assert tcm.circle_moments_raw.launches == before + 1
-    want = tcm.circle_moments_raw(pts, cnt, use_kernel=False)
+    with plain_versions():
+        want = tcm.circle_moments_raw(pts, cnt)
     assert [tuple(g.shape) for g in got] == [(*lead, 16), (*lead, 2), lead]
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
@@ -476,7 +479,8 @@ def test_fit_circles_and_buffered_detection_launch_the_kernel(dev):
     before = cfk.circle_fit_raw.launches
     got = circle_fit.fit_circles(cl)
     assert cfk.circle_fit_raw.launches == before + 1
-    want = circle_fit.fit_circles(cl, use_kernel=False)
+    with plain_versions():
+        want = circle_fit.fit_circles(cl)
     assert torch.equal(got.valid, want.valid) and bool(got.valid.any())
     ok = got.valid
     torch.testing.assert_close(got.center[ok], want.center[ok], rtol=0,
@@ -563,7 +567,8 @@ def test_circle_fit_kernel_is_bit_equal_to_plain(dev, lead, P):
     mom = tcm.circle_moments_raw(pts, cnt)
     for g, w in zip(got[3:], mom):
         assert torch.equal(g, w)
-    plain = tcm.circle_moments_raw(pts, cnt, use_kernel=False)
+    with plain_versions():
+        plain = tcm.circle_moments_raw(pts, cnt)
     for g, w in zip(got[3:], plain):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     m16, cent, zbar = got[3:]
@@ -595,20 +600,22 @@ def test_fit_tail_kernel_is_bit_equal_to_plain(dev):
     got = cfk.fit_tail(mom, cx, cy, zbar, cnt, valid)
     torch.cuda.synchronize()
     assert cfk.fit_tail.launches == before + 1
-    want = cfk.fit_tail(mom, cx, cy, zbar, cnt, valid, use_kernel=False)
+    want = cfk._fit_tail_c(cfk.components(mom), cx, cy, zbar, cnt, valid)
     assert _first_difference(got, want) is None and bool(got[2].any())
     wide = torch.stack(cfk.components(mom), -1)
     assert _first_difference(cfk.fit_tail(wide, cx, cy, zbar, cnt, valid),
                              want) is None
     a = landmark_detection.detect_landmarks(last["scan"], params.scan_min,
                                             params.scan_max)
-    b = landmark_detection.detect_landmarks(last["scan"], params.scan_min,
-                                            params.scan_max, use_kernel=False)
+    with plain_versions():
+        b = landmark_detection.detect_landmarks(
+            last["scan"], params.scan_min, params.scan_max)
     assert torch.equal(a.valid, b.valid)
     assert torch.equal(a.positions, b.positions)
     front = perception.fit_inputs(last["scan"], params.scan_min,
                                   params.scan_max, 16, 64)
-    center, radius, okf = cfk.fit_tail(*front[:6], use_kernel=False)
+    center, radius, okf = cfk._fit_tail_c(cfk.components(front[0]),
+                                          *front[1:6])
     c = landmark_detection._compact(center, front[6] & okf & (radius <= 1.0))
     assert torch.equal(a.valid, c.valid)
     assert torch.equal(a.positions, c.positions)
@@ -729,7 +736,8 @@ def test_seq_scan_batched_worlds_equal_their_own_launches(dev, N):
         got = tsq.deferred_seq_scan(*_worlds(worlds), **kw)
         torch.cuda.synchronize()
         assert tsq.deferred_seq_scan.launches == before + 1
-        want = tsq.deferred_seq_scan(*_worlds(worlds), use_kernel=False, **kw)
+        with plain_versions():
+            want = tsq.deferred_seq_scan(*_worlds(worlds), **kw)
         for b, args in enumerate(worlds):
             alone = tsq.deferred_seq_scan(*args, **kw)
             for name, g, w in zip(NAMES, got, alone):
@@ -1088,3 +1096,61 @@ def test_lidar20_tuned_runs_kernel_4_on_both_engines(dev):
     err = float((outs["lanes"].slam_pose - outs["vmapped"].slam_pose).abs()
                 .max())
     assert err <= 1e-4, err
+
+
+def _launches():
+    """Every kernel wrapper's launch counter."""
+    return (tgu.fused_grid_update.launches, tsq.deferred_seq_scan.launches,
+            tcu.fused_kalman_update.launches,
+            tcm.circle_moments_raw.launches, cfk.circle_fit_raw.launches,
+            cfk.fit_tail.launches, perception.fit_inputs.launches,
+            ekf_tick.step.launches)
+
+
+def _call_every_wrapper(dev):
+    """Each kernel wrapper once, on small operands on the card."""
+    ops = [torch.from_numpy(x).to(dev) for x in
+           grid_operands(48, 50, 3, seed=3, dtype=np.float32)]
+    tgu.fused_grid_update(ops[0].clone(), *ops[1:])
+    x = scan_inputs(64, 4, [60, 5, 60, 3], [1, 1, 1, 1])
+    tsq.deferred_seq_scan(*(torch.from_numpy(np.array(v)).to(dev)
+                            for v in x.values()))
+    D = 128
+    tcu.fused_kalman_update(
+        torch.eye(D, device=dev), torch.ones((D, 2), device=dev),
+        torch.eye(2, device=dev), torch.ones(2, device=dev),
+        torch.zeros(D, device=dev))
+    pts, cnt, valid = _fit_inputs(dev, (8,), 16, 5)
+    tcm.circle_moments_raw(pts, cnt)
+    m16, cent, zbar = cfk.circle_fit_raw(pts, cnt, valid)[3:]
+    cfk.fit_tail(m16, cent[..., 0], cent[..., 1], zbar, cnt, valid)
+    perception.fit_inputs(torch.full((2, 360), 0.5, device=dev), 0.05, 1.0,
+                          16, 64)
+    scn = get_scenario("lidar20_full")
+    cfg = scn.ekf_config()
+    Q, R = scn.noise_matrices(torch.float32, dev)
+    ekf_tick.step(cfg, ekf_batch.init(cfg, 2, device=dev),
+                  torch.zeros((2, 3), device=dev),
+                  torch.ones((2, 16, 2), device=dev),
+                  torch.ones((2, 16), dtype=torch.bool, device=dev), Q, R)
+    torch.cuda.synchronize()
+
+
+def test_plain_versions_switch_launches_nothing_and_restores(dev):
+    """Inside ``plain_versions()`` every wrapper runs its plain version on
+    card tensors: no launch counter moves. After it, and after an
+    exception raised inside it, every wrapper launches its kernel again."""
+    before = _launches()
+    with plain_versions():
+        _call_every_wrapper(dev)
+    assert _launches() == before
+    _call_every_wrapper(dev)
+    after = _launches()
+    assert all(a == b + 1 for a, b in zip(after, before)), (after, before)
+    with pytest.raises(RuntimeError, match="inside"):
+        with plain_versions():
+            _call_every_wrapper(dev)
+            raise RuntimeError("inside")
+    assert _launches() == after
+    _call_every_wrapper(dev)
+    assert all(a == b + 1 for a, b in zip(_launches(), after))

@@ -2,7 +2,7 @@
 ``csrc/ekf_tick.cu``) against the plain ``models/ekf_batch`` tick.
 
 The CPU tests (tier 1) hold the pure launch plan, what the kernel
-refuses, and the path ``run_scenario_batch_lanes`` takes and counts. The
+refuses, and the path ``run_scenario_batch_lanes`` takes. The
 card tests (marked ``requires_cuda``; they skip elsewhere) hold the
 kernel to the plain tick on the card. The file imports no JAX; on the card run it with
 
@@ -31,7 +31,6 @@ from shermbot_navigation_tpu_torch.ops.kernels import _build
 from shermbot_navigation_tpu_torch.ops.kernels import ekf_tick
 from shermbot_navigation_tpu_torch.pipeline import driver
 from shermbot_navigation_tpu_torch.pipeline.config import get_scenario
-from shermbot_navigation_tpu_torch.utils import tracing
 
 # every scenario the lanes engine runs, with its state size D = 3 + 2N
 LANES = {"loop5_known": 13, "stock6": 15, "course12_noisy": 27,
@@ -132,18 +131,12 @@ def test_the_kernel_refuses_what_it_does_not_take(monkeypatch, case):
 def test_cpu_run_takes_the_plain_path_and_never_builds(monkeypatch, name,
                                                        dtype):
     _no_build(monkeypatch)
-    before = tracing.counters()
     g = torch.Generator(device="cpu")
     g.manual_seed(0)
     launches = ekf_tick.step.launches
     outs = driver.run_scenario_batch_lanes(get_scenario(name), g, batch=2,
                                            steps=3, dtype=dtype,
                                            device="cpu")
-    after = tracing.counters()
-    assert after.get("filter.plain_runs", 0) == \
-        before.get("filter.plain_runs", 0) + 1
-    assert after.get("filter.fused_runs", 0) == \
-        before.get("filter.fused_runs", 0)
     assert ekf_tick.step.launches == launches
     assert bool(torch.isfinite(outs.slam_pose).all())
 
@@ -186,15 +179,6 @@ def test_plain_route_is_the_ekf_batch_tick(name):
                                          else zs.shape[1])
     for a, b in zip(got_m, want_m):
         assert torch.equal(a, b)
-
-
-def test_kernel_route_refuses_cpu_tensors():
-    scn, twist, zs, valid = _tick_inputs("lidar20_full", 2, 2)
-    cfg = scn.ekf_config()
-    Q, R = scn.noise_matrices(torch.float32, "cpu")
-    st = ekf_batch.init(cfg, 2, device="cpu")
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        ekf_tick.step(cfg, st, twist, zs, valid, Q, R, use_kernel=True)
 
 
 def test_launch_flags_follow_the_config():
@@ -246,10 +230,10 @@ def _two_chains(dev, name, B, T, seed, **cfg):
         sense, twist, zs, valid, _ = driver.sense_tick(
             scn, params, sense, cmds[t], driver.draw_noise(scn, g, (B,)))
         marg, fmarg = [], []
-        plain = ekf_tick.step(ecfg, plain, twist, zs, valid, Q, R, ids,
-                              marg, use_kernel=False)
+        plain = ekf_tick.reference_step(ecfg, plain, twist, zs, valid, Q, R,
+                                        ids, marg)
         fused = ekf_tick.step(ecfg, fused, twist, zs, valid, Q, R, ids,
-                              fmarg, use_kernel=True)
+                              fmarg)
         margins = None
         if marg:
             assert len(fmarg) == 1
@@ -320,7 +304,7 @@ def test_a_world_that_does_not_act_is_bit_equal(dev):
     valid = torch.ones((B, 16), dtype=torch.bool, device=dev)
     idle = torch.arange(B, device=dev) % 2 == 1
     valid[idle] = False
-    out = ekf_tick.step(cfg, st, twist, zs, valid, Q, R, use_kernel=True)
+    out = ekf_tick.step(cfg, st, twist, zs, valid, Q, R)
     pred = ekf_batch.predict(cfg, st, twist, Q)
     for k in ("mean", "cov", "n_seen", "seen"):
         assert torch.equal(getattr(out, k)[..., idle],
@@ -348,15 +332,13 @@ def test_batched_worlds_equal_their_own_launches(dev, B):
                       - 3.1], -1)
     valid = torch.rand((B, 16), generator=g, device=dev) < 0.7
     marg = []
-    whole = ekf_tick.step(cfg, st, twist, zs, valid, Q, R, margins=marg,
-                          use_kernel=True)
+    whole = ekf_tick.step(cfg, st, twist, zs, valid, Q, R, margins=marg)
     for b in range(B):
         one = ekf_batch.BatchState(*(x[..., b:b + 1].contiguous()
                                      for x in st))
         m1 = []
         own = ekf_tick.step(cfg, one, twist[b:b + 1], zs[b:b + 1],
-                            valid[b:b + 1], Q, R, margins=m1,
-                            use_kernel=True)
+                            valid[b:b + 1], Q, R, margins=m1)
         for k in ("mean", "cov", "n_seen", "seen"):
             assert torch.equal(getattr(whole, k)[..., b:b + 1],
                                getattr(own, k)), (b, k)
@@ -378,14 +360,14 @@ def test_filter_tick_never_waits_for_the_device(dev):
     twist = 0.02 * torch.randn((B, 3), generator=g, device=dev)
     zs = torch.rand((B, 16, 2), generator=g, device=dev)
     valid = torch.rand((B, 16), generator=g, device=dev) < 0.5
-    ekf_tick.step(cfg, st, twist, zs, valid, Q, R, use_kernel=True)
+    ekf_tick.step(cfg, st, twist, zs, valid, Q, R)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(4):
             marg = []
             st = ekf_tick.step(cfg, st, twist, zs, valid, Q, R,
-                               margins=marg, use_kernel=True)
+                               margins=marg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -417,20 +399,13 @@ def test_card_run_refuses_float64(dev):
 
 
 @pytest.mark.requires_cuda
-def test_card_run_counts_one_fused_run(dev):
-    """On the card the lanes driver takes the kernel: one launch a tick,
-    counted once a run in ``filter.fused_runs``."""
-    before = tracing.counters()
+def test_card_run_launches_once_a_tick(dev):
+    """On the card the lanes driver takes the kernel: one launch a tick."""
     launches = ekf_tick.step.launches
     g = torch.Generator(device=dev)
     g.manual_seed(12)
     T = 3
     outs = driver.run_scenario_batch_lanes(get_scenario("lidar20_full"), g,
                                            batch=64, steps=T, device=dev)
-    after = tracing.counters()
-    assert after.get("filter.fused_runs", 0) == \
-        before.get("filter.fused_runs", 0) + 1
-    assert after.get("filter.plain_runs", 0) == \
-        before.get("filter.plain_runs", 0)
     assert ekf_tick.step.launches - launches == T
     assert bool(torch.isfinite(outs.slam_pose).all())

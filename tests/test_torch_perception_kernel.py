@@ -49,6 +49,7 @@ from shermbot_navigation_tpu_torch.ops import landmark_detection as ld
 from shermbot_navigation_tpu_torch.ops.kernels import _build
 from shermbot_navigation_tpu_torch.ops.kernels import circle_fit as cfk
 from shermbot_navigation_tpu_torch.ops.kernels import perception as pk
+from shermbot_navigation_tpu_torch.ops.kernels import plain_versions
 from shermbot_navigation_tpu_torch.pipeline import driver
 from shermbot_navigation_tpu_torch.pipeline.config import get_scenario
 
@@ -243,12 +244,6 @@ def test_the_kernel_refuses_what_it_does_not_take(monkeypatch, case, match):
         pk._launch(r, lo, hi, C, 64, 10.0, None)
 
 
-def test_use_kernel_refuses_cpu_scans():
-    r, C, P = _scans("tubes", torch.float32)
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        pk.fit_inputs(r, MINR, MAXR, C, P, use_kernel=True)
-
-
 # ---------------------------------------------------------------------------
 # The card: the kernel against the plain version
 # ---------------------------------------------------------------------------
@@ -380,8 +375,9 @@ def test_final_detections_equal_the_plain_path(dev, seed, noise):
                         device=dev)
     C, P = 16, 64
     got = ld.detect_landmarks(r, MINR, MAXR, max_clusters=C, max_points=P)
-    want = ld.detect_landmarks(r, MINR, MAXR, max_clusters=C, max_points=P,
-                               use_kernel=False)
+    with plain_versions():
+        want = ld.detect_landmarks(r, MINR, MAXR, max_clusters=C,
+                                   max_points=P)
     _assert_detections_close(got, want, 0.0, f"noise {noise}")
     assert int(got.valid.sum()) > 20
 
@@ -428,8 +424,9 @@ def test_eight_ticks_at_wide_batch(dev, name):
                                  f"{name} tick {t}")
         del want
         a = ld.detect_landmarks(scan, lo, hi, max_clusters=C, max_points=P)
-        b = ld.detect_landmarks(scan, lo, hi, max_clusters=C, max_points=P,
-                                use_kernel=False)
+        with plain_versions():
+            b = ld.detect_landmarks(scan, lo, hi, max_clusters=C,
+                                    max_points=P)
         _assert_detections_close(a, b, FIT_SWITCH_SHARE, f"{name} tick {t}")
         assert int(a.valid.sum()) > B, f"{name} tick {t}"
 

@@ -86,7 +86,7 @@ def _converged_dense(n_init, dtype, seed=1):
     return jax_to_numpy(st)
 
 
-def _run_both(T, np_dtype, jax_kw, torch_kw, known=True):
+def _run_both(T, np_dtype, jax_kw, known=True):
     jdt = jnp.float64 if np_dtype == np.float64 else jnp.float32
     tdt = torch.float64 if np_dtype == np.float64 else torch.float32
     jcfg = jekf.EKFConfig(num_landmarks=N)
@@ -103,7 +103,7 @@ def _run_both(T, np_dtype, jax_kw, torch_kw, known=True):
     eng = tserving.ServingEngine(
         tcfg, M, torch.from_numpy(Q), torch.from_numpy(R), dtype=tdt,
         known=known, dense_state=convert.ekf_state_from_numpy(dense, "cpu"),
-        device="cpu", **torch_kw)
+        device="cpu")
     for t in range(T):
         args = (twists[t].astype(np_dtype), zs[t].astype(np_dtype), valid[t],
                 ids[t])[:4 if known else 3]
@@ -129,7 +129,7 @@ def _assert_serving_close(got, want, atol):
 
 
 def test_serving_matches_jax_xla_f64():
-    want, got = _run_both(6, np.float64, {}, {})
+    want, got = _run_both(6, np.float64, {})
     assert int(got.n_seen[0]) > 3          # the ticks init and update
     _assert_serving_close(got, want, 1e-9)
 
@@ -138,7 +138,7 @@ def test_unknown_serving_matches_jax_xla_f64():
     """Unknown association over ticks that create, overflow (the map has
     16 slots for 20 points) and match; the decisions (``n_seen``,
     ``seen``) equal and the state to 1e-9."""
-    want, got = _run_both(7, np.float64, {}, {}, known=False)
+    want, got = _run_both(7, np.float64, {}, known=False)
     assert int(got.n_seen[0]) == N
     _assert_serving_close(got, want, 1e-9)
 
@@ -149,7 +149,7 @@ def test_serving_matches_jax_kernel_interpret_f32():
     atan2, row-for-column reads) over 3 ticks."""
     want, got = _run_both(3, np.float32,
                           dict(seq_kernel=True, seq_interpret=True,
-                               grid_kernel=True, kernel_interpret=True), {})
+                               grid_kernel=True, kernel_interpret=True))
     _assert_serving_close(got, want, 1e-5)
 
 

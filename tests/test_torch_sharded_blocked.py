@@ -242,10 +242,8 @@ def test_seq_kernel_at_several_shards_raises_and_auto_is_plain():
     cfg = tekf.EKFConfig(num_landmarks=N)
     mesh = _one_process(2)
     with pytest.raises(ValueError, match="one map shard"):
-        tblocked.make_deferred_step(cfg, M, "cpu", seq_kernel=True,
+        tblocked.make_deferred_step(cfg, M, "cpu", gate_margins=[],
                                     mesh=mesh)
-    with pytest.raises(ValueError, match="one map shard"):
-        tbigmap.make_runner(cfg, M, "cpu", seq_kernel=True, mesh=mesh)
     with pytest.raises(ValueError, match="divisible"):
         tblocked.make_sequential_step(cfg, M, "cpu", mesh=_one_process(3))
     # auto: the plain sharded scan, no kernel
