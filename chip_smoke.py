@@ -21,7 +21,7 @@ It imports nothing of JAX. Phases, one JSON line each:
 
 1. device  -- card name and power limit (nvidia-smi), torch/CUDA versions,
               the TF32 switches (all off);
-2. build   -- the six CUDA sources under ``csrc/`` built, one ``nvcc``
+2. build   -- the seven CUDA sources under ``csrc/`` built, one ``nvcc``
               each, all at once (seconds; registers, shared memory and
               spill bytes of every kernel from ptxas);
 3. grid_update against its plain version at N=2048, M=8 on the card;
@@ -85,19 +85,24 @@ It imports nothing of JAX. Phases, one JSON line each:
    deterministic world's ATE within 1e-3 m; median-world ATE, diverged
    fraction and median ``n_seen`` over all worlds; the smallest margins of
    a split, a circle and a gate decision to their thresholds; the
-   counters of kernel 6 (perception's front end), the tail kernel and
-   kernel 5 (the filter's tick) each equal the ticks run. Then (phase
-   segment_fit_inputs) kernel 6 against its plain version on every 8th
-   tick's scans: bit for bit against the plain version summed in ray
-   order; against it on cuBLAS, count, valid and the stored rows exactly,
-   is_circle exactly away from the threshold, each sum within its own
-   column's float32 bound for another order. Then
+   counters of kernel 7 (the sim's tick), kernel 6 (perception's front
+   end), the tail kernel and kernel 5 (the filter's tick) each equal the
+   ticks run. Then (phase segment_fit_inputs) kernel 6 against its plain
+   version on every 8th tick's scans: bit for bit against the plain
+   version summed in ray order; against it on cuBLAS, count, valid and
+   the stored rows exactly, is_circle exactly away from the threshold,
+   each sum within its own column's float32 bound for another order. Then
    (phase config3_ekf_tick) kernel 5 against the plain
    tick (``ekf_batch.step``) at B=1024 for EKF_TICKS ticks of the same
    noise: two filters fed the same real detections, every world's state
    and smallest gate margin equal bit for bit after every tick except
    where a gate margin came within EKF_TIE_REL; ms a call, device ms and
-   plain ms on the last tick's inputs beside the byte bound;
+   plain ms on the last tick's inputs beside the byte bound. Then (phase
+   config3_sim_tick) kernel 7 against the plain chain (``step_dynamics``
+   x 5, ``observe``, the odometry) at B=1024 for SIM_TICKS ticks of the
+   same noise, two chains on their own states, every output equal bit for
+   bit after every tick; ms a call, device ms and plain ms at B=1024 and
+   on a tick of 65536 worlds beside the bound;
 14. perception_buffered -- on every tick's (1024, 360) scans of phase 13,
    ``detect_landmarks(segmented=False)`` through the whole-fit kernel:
    ``valid`` equal to phase 13's segmented detections (every tick) and
@@ -134,8 +139,8 @@ It imports nothing of JAX. Phases, one JSON line each:
    kernel; beside it the kernel's own phase clock, a split of its time.
 17. configs12 -- the main path of the port's bench entry
    (``python -m shermbot_navigation_tpu_torch.bench``), which launches
-   kernel 5 (the filter's tick) once a tick on the lanes engine and no
-   other kernel (every counter is read), f32, 600
+   kernels 7 and 5 (the sim's and the filter's tick) once a tick each on
+   the lanes engine and no other kernel (every counter is read), f32, 600
    ticks: (a) config 1 at B=16384 on the lanes engine, every world's ATE
    within 1e-4 m of ``tests/fixtures/loop5_golden.json``'s JAX f32 ATE
    and of the C++ ``--deterministic`` ATE (``native/baseline``, built with
@@ -226,9 +231,10 @@ It imports nothing of JAX. Phases, one JSON line each:
    set to 0 just before and read just after: (a) ``aux_staged``: the
    staged pipeline (``pipeline/staged``) of ``lidar20_full`` on two
    streams (producer and consumer, a double-buffered packet between them)
-   against its sequential oracle, T21 ticks, kernel 6 and kernel 4's tail
-   launched once a tick and no other kernel; ms a tick of both in turns on
-   ``lidar20_full`` and ``loop5_known``, and the streams' overlap by
+   against its sequential oracle, T21 ticks, kernel 7, kernel 6 and
+   kernel 4's tail launched once a tick and no other kernel; ms a tick of
+   both in turns on ``lidar20_full`` and ``loop5_known``, and the streams'
+   overlap by
    ``torch.profiler``; (b) ``aux_guarded_tick``: the guarded deferred
    tick (``utils/guards``) at N=2048, M=8 under the sync debug mode (no
    host sync), bit-equal to the unguarded tick over 32 ticks, kernels 1
@@ -247,9 +253,9 @@ It imports nothing of JAX. Phases, one JSON line each:
 22. lidar20_tuned -- config 3's quality mode (nearest-neighbour
    association, chi-square gates, wrapped innovations, multiplicative
    slip) through ``run_scenario_batch_lanes`` at B3 worlds for its 600
-   ticks, every counter set to 0 just before and read after (kernel 6,
-   kernel 4's tail and kernel 5 once a tick each, nothing else): the first
-   8 worlds
+   ticks, every counter set to 0 just before and read after (kernels 7
+   and 6, kernel 4's tail and kernel 5 once a tick each, nothing else): the
+   first 8 worlds
    on the draws of
    ``tests/fixtures/lidar20_tuned_golden.json`` held to the JAX f32 run
    (bounds and reasons beside LIDAR_TUNED_TOL), no world diverged,
@@ -303,7 +309,7 @@ from shermbot_navigation_tpu_torch.models import ekf_batch, ekf_slam
 from shermbot_navigation_tpu_torch.models import pose_graph
 from shermbot_navigation_tpu_torch.models.ekf_slam import EKFConfig
 from shermbot_navigation_tpu_torch.ops import circle_fit, clustering
-from shermbot_navigation_tpu_torch.ops import diff_drive, se2, smallalg
+from shermbot_navigation_tpu_torch.ops import se2, smallalg
 from shermbot_navigation_tpu_torch.ops import landmark_detection
 from shermbot_navigation_tpu_torch.ops.kernels import _build
 from shermbot_navigation_tpu_torch.ops.kernels import circle_fit as cfk
@@ -314,6 +320,7 @@ from shermbot_navigation_tpu_torch.ops.kernels import grid_update as gu
 from shermbot_navigation_tpu_torch.ops.kernels import perception as pk
 from shermbot_navigation_tpu_torch.ops.kernels import plain_versions
 from shermbot_navigation_tpu_torch.ops.kernels import seq_scan as sq
+from shermbot_navigation_tpu_torch.ops.kernels import sim_tick
 from shermbot_navigation_tpu_torch.ops.landmark_detection import (
     detect_landmarks)
 from shermbot_navigation_tpu_torch.parallel import bigmap, blocked_ekf
@@ -340,7 +347,9 @@ T_DENSE = 32
 B3 = 1024          # config 3's worlds: the batch the reference's programs use
 T_CONFIG3 = 600    # ticks of lidar20_full (the scenario's own length)
 C3, P3 = 16, 64    # cluster slots a world, point rows a cluster
-EKF_TICKS = 100    # ticks of kernel 5 held to the plain tick at B3 worlds
+EKF_TICKS = 60     # ticks of kernel 5 held to the plain tick at B3 worlds
+SIM_TICKS = 50     # ticks of kernel 7 held to the plain chain at B3 worlds
+SIM_WIDE = 65536   # the wide cell's worlds, where kernel 7 is timed too
 EKF_TIE_REL = 1e-4  # a world whose gate margin came this close is excused
 # (~14% of the worlds over the 100 ticks; each is reported all the same)
 SCALING_SIZES = (2048, 8192, 16384)   # map sizes of the kernel_scaling phase
@@ -785,6 +794,13 @@ KERNELS = {
         "replaces": "none (the port's own kernel): "
                     f"{PKG}/ops/clustering.py "
                     "_segment_fit_inputs"},
+    # kernel 7, the port's own: the simulator's tick, where the JAX
+    # package leaves sim/tube_world to XLA (phase 13)
+    "sim_tick": {
+        "source": f"{PKG}/csrc/sim_tick.cu",
+        "replaces": "none (the port's own kernel): "
+                    f"{PKG}/sim/tube_world.py step_dynamics, observe; "
+                    f"{PKG}/ops/diff_drive.py step"},
     # kernel 4's tail on lidar20_tuned's segmented perception (phase 22)
     "circle_fit_tail_tuned": {
         "source": f"{PKG}/csrc/circle_fit.cu",
@@ -1825,7 +1841,7 @@ def reset_counters():
     for fn in (gu.fused_grid_update, sq.deferred_seq_scan,
                cu.fused_kalman_update, cmk.circle_moments_raw,
                cfk.circle_fit_raw, cfk.fit_tail, ekf_tick.step,
-               pk.fit_inputs):
+               pk.fit_inputs, sim_tick.step):
         fn.launches = 0
 
 
@@ -1841,13 +1857,15 @@ def kernel_launches():
     return {"grid_update": gu.fused_grid_update.launches,
             "seq_scan": sq.deferred_seq_scan.launches,
             "cov_update": cu.fused_kalman_update.launches,
-            "ekf_tick": ekf_tick.step.launches, **fit_launches()}
+            "ekf_tick": ekf_tick.step.launches,
+            "sim_tick": sim_tick.step.launches, **fit_launches()}
 
 
 def filter_launches_only(launches, T):
     """The counts a lanes run of T ticks on the fake sensor (configs 1
-    and 2) must read: the filter's tick once a tick, nothing else."""
-    return {k: T if k == "ekf_tick" else 0 for k in launches}
+    and 2) must read: the sim's and the filter's tick once a tick each,
+    nothing else."""
+    return {k: T if k in ("ekf_tick", "sim_tick") else 0 for k in launches}
 
 
 def phase_config3(dev, scn):
@@ -1876,6 +1894,7 @@ def phase_config3(dev, scn):
     seconds = time.perf_counter() - t0
     launches = fit_launches()
     filter_launches = ekf_tick.step.launches
+    sim_launches = sim_tick.step.launches
     del noise
 
     finite = all(bool(torch.isfinite(x).all()) for x in outs
@@ -1920,7 +1939,8 @@ def phase_config3(dev, scn):
     last_seen = outs.n_seen[:, -1]
     emit(phase="config3", scenario=scn.name, B=B3, T=T, seconds=seconds,
          ms_per_tick=seconds * 1e3 / T, finite=finite,
-         launches=dict(launches, ekf_tick=filter_launches), fixture=fixture,
+         launches=dict(launches, ekf_tick=filter_launches,
+                       sim_tick=sim_launches), fixture=fixture,
          tol=CONFIG3_TOL,
          all_worlds={"median_ate": float(ate.median()),
                      "diverged_fraction": float((ate > 1.0).double().mean()),
@@ -1941,6 +1961,9 @@ def phase_config3(dev, scn):
     if filter_launches != T:
         fail(f"config 3's filter launched kernel 5 {filter_launches} times "
              f"in {T} ticks, want once a tick")
+    if sim_launches != T:
+        fail(f"config 3's sim launched kernel 7 {sim_launches} times in {T} "
+             f"ticks, want once a tick")
     tol = CONFIG3_TOL
     if not fixture["n_detections_equal_early"]:
         fail(f"fixture worlds: detections per tick differ from the JAX run "
@@ -1968,7 +1991,7 @@ def phase_config3(dev, scn):
         if not max(ate_err) <= tol["ate"]:
             fail(f"fixture worlds' ATE off by {ate_err}")
     return (scans, zs_all, valid_all, launches["circle_fit_tail"],
-            filter_launches, launches["segment_fit_inputs"])
+            filter_launches, launches["segment_fit_inputs"], sim_launches)
 
 
 def fit_inputs_bounds(want):
@@ -2172,6 +2195,108 @@ def phase_ekf_tick(dev, scn):
         fail(f"{int(tied.sum())} of {B3} worlds came within {EKF_TIE_REL} "
              f"of a gate: the check holds fewer than half of them")
     return err, row
+
+
+def sim_tick_work(B, n, K, S):
+    """(bytes, f32 operations) of kernel 7's tick of B worlds with the
+    odometry: the state read (pose, wheels, commanded wheels, odometry
+    pose and wheels: 12 words) and the draws read once (twist and slip
+    4 S, scan normals and keep uniforms 2 n), the outputs written once
+    (13 words, the scan n, the fake sensor's 2 K words and K flags); the
+    operations: ~8 a ray-tube pair (the quadratic, the hit test, the
+    minimum), ~45 a ray (its sine and cosine, each counted as 20, the
+    angle and the noise), and a substep's collision loop (~8 a tube) and
+    wheels and pose (~60)."""
+    nbytes = B * (4 * (12 + 4 * S + 2 * n + 13 + n + 2 * K) + K)
+    flops = B * (n * K * 8 + n * 45 + S * (K * 8 + 60) + 100)
+    return nbytes, flops
+
+
+def sim_tick_chains(scn, params, noise, T, B):
+    """Kernel 7 and the plain chain, each on its own state, fed the same
+    T ticks of draws; returns the first tick and the entries where each
+    output parted (empty: every output the plain chain's bits after every
+    tick), and the last tick's inputs."""
+    wcfg = scn.world_config()
+    dev = params.tube_locs.device
+    src = driver.NoiseSource(scn, noise, (B,), torch.float32, dev)
+    cmds = driver.command_twist(scn, T, device=dev)
+    start = driver.init_sense(params, torch.float32, (B,))
+    plain = fused = start
+    parted = {}
+    for t in range(T):
+        tick = src.tick(t)
+        p = sim_tick.reference_tick(wcfg, params, plain.world, cmds[t],
+                                    scn.dt, tick, scn.sim_substeps,
+                                    plain.odom)
+        f = sim_tick.step(wcfg, params, fused.world, cmds[t], scn.dt, tick,
+                          scn.sim_substeps, fused.odom)
+        pairs = {"pose": (p.world.drive.pose, f.world.drive.pose),
+                 "wheels": (p.world.drive.wheels, f.world.drive.wheels),
+                 "cmd_wheels": (p.world.cmd_wheels, f.world.cmd_wheels),
+                 "scan": (p.obs.scan, f.obs.scan),
+                 "odom_pose": (p.odom.pose, f.odom.pose),
+                 "twist": (p.twist, f.twist)}
+        for k, (a, b) in pairs.items():
+            if k not in parted and not torch.equal(a, b):
+                parted[k] = {"tick": t, "entries": int((a != b).sum()),
+                             "max_abs_err": float((a - b).abs().max())}
+        plain = driver.SenseState(p.world, p.odom)
+        fused = driver.SenseState(f.world, f.odom)
+    return parted, (wcfg, params, fused.world, cmds[T - 1], scn.dt, tick,
+                    scn.sim_substeps, fused.odom)
+
+
+def sim_tick_row(args, B):
+    """ms a call (CUDA events), the kernel's device ms (``torch.profiler``)
+    and the plain chain's ms on one tick's inputs, beside the bound."""
+    wcfg, params = args[0], args[1]
+    row = {"ms": cuda_ms(lambda: sim_tick.step(*args), 50),
+           "plain_ms": cuda_ms(lambda: sim_tick.reference_tick(*args), 2, 3),
+           "device_ms": profiled_device_ms(lambda: sim_tick.step(*args),
+                                           "sim_tick_kernel", 20),
+           **bound_of(*sim_tick_work(B, wcfg.num_rays,
+                                     params.tube_locs.shape[0], args[6]))}
+    d = row["device_ms"]
+    row["share_of_bound"] = row["bound_ms"] / d if d else None
+    return row
+
+
+def phase_sim_tick(dev, scn):
+    """Kernel 7 against its plain chain (``step_dynamics`` x 5, ``observe``,
+    the odometry) at B3 worlds for SIM_TICKS ticks of phase 13's noise:
+    two chains, each on its own state, every output equal bit for bit
+    after every tick. Then ms a call, device ms and plain ms on the last
+    tick's inputs, and on a tick of SIM_WIDE worlds (the wide cell's),
+    beside the bound. Returns (largest difference, the kernels line's
+    row)."""
+    _, gslip = lidar_fixture()
+    T = SIM_TICKS
+    params = scn.world_params(device=dev)
+    reset_counters()
+    parted, args = sim_tick_chains(scn, params,
+                                   config3_noise(scn, dev, gslip, T), T, B3)
+    launches = sim_tick.step.launches
+    row = sim_tick_row(args, B3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    _, wide = sim_tick_chains(scn, params, gen, 1, SIM_WIDE)
+    wide_row = sim_tick_row(wide, SIM_WIDE)
+    del wide
+    emit(phase="config3_sim_tick", scenario=scn.name, B=B3, T=T,
+         launches=launches, first_parting=parted, per_call=row,
+         wide={"B": SIM_WIDE, **wide_row},
+         note="two chains fed the same ticks; ms: CUDA events over wrapper "
+              "calls, median of 5, on the last tick's inputs; device_ms: "
+              "the kernel alone by torch.profiler; plain_ms: the plain "
+              "chain (reference_tick) on the card; bound: bytes read and "
+              "written once over 3.35 TB/s against the operations' count "
+              "over the f32 rate")
+    if launches != T:
+        fail(f"kernel 7 launched {launches} times in {T} ticks")
+    if parted:
+        fail(f"kernel 7 against the plain chain: {parted}")
+    return 0.0, row
 
 
 def phase_perception_buffered(dev, scn, scans, zs_all, valid_all):
@@ -2490,7 +2615,6 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
     params = scn.world_params(device=dev)
     wcfg, ecfg = scn.world_config(), scn.ekf_config()
     Q, R = scn.noise_matrices(device=dev)
-    dparams = diff_drive.DiffDriveParams(params.wheel_base, params.wheel_rad)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     block = 10
@@ -2515,15 +2639,9 @@ def phase_config3_timing(dev, scn, cm_ops, grid_ops, cov_ops):
         for i in range(block):
             noise = driver.draw_noise(scn, gen, (B3,))
             t = lap("noise", t)
-            world = st["sense"].world
-            for k in range(scn.sim_substeps):
-                world = tube_world.step_dynamics(wcfg, params, world, cmds[i],
-                                                 scn.dt, noise.substep(k))
-            obs = tube_world.observe(wcfg, params, world, noise.obs)
-            twist = diff_drive.wheels_to_twist(
-                dparams, obs.joint_states - st["sense"].odom.wheels)
-            odom = diff_drive.step(dparams, st["sense"].odom,
-                                   obs.joint_states)
+            world, obs, odom, twist = sim_tick.step(
+                wcfg, params, st["sense"].world, cmds[i], scn.dt, noise,
+                scn.sim_substeps, st["sense"].odom)
             st["sense"] = driver.SenseState(world=world, odom=odom)
             t = lap("sim", t)
             det = detect_landmarks(obs.scan, params.scan_min, params.scan_max,
@@ -3010,8 +3128,10 @@ def phase_config1_vmapped(dev, scn, golden, lanes, lanes_ms):
          pose_tol=CONFIGS12_POSE_TOL, ate_max_abs_err_vs_golden=ate_err)
     if not all_finite(dense):
         fail("run_scenario_batch produced non-finite values")
-    if any(launches.values()):
-        fail(f"run_scenario_batch launched {launches}: no kernel expected")
+    want = {k: T if k == "sim_tick" else 0 for k in launches}
+    if launches != want:
+        fail(f"run_scenario_batch launched {launches}: want {want}, the "
+             f"sim's tick once a tick")
     if not (seen_eq and ok):
         fail(f"run_scenario_batch against the lanes engine: n_seen equal "
              f"{seen_eq}, poses off by {err}")
@@ -4335,6 +4455,7 @@ def phase_staged(dev):
              f"equal {n_seen_equal}")
     want = dict.fromkeys(launches, 0)
     want["circle_fit_tail"] = want["segment_fit_inputs"] = T21
+    want["sim_tick"] = T21
     if launches != want:
         fail(f"staged lidar20_full launched {launches}, want {want}")
     return launches
@@ -4776,10 +4897,10 @@ def phase_lidar20_tuned(dev):
         fail(f"lidar20_tuned: finite {finite}, {diverged} of {B3} worlds "
              f"diverged")
     if launches != {k: T if k in ("circle_fit_tail", "ekf_tick",
-                                  "segment_fit_inputs") else 0
+                                  "segment_fit_inputs", "sim_tick") else 0
                     for k in launches}:
-        fail(f"lidar20_tuned launched {launches}, want the front end, the "
-             f"tail and kernel 5 {T} times each")
+        fail(f"lidar20_tuned launched {launches}, want the sim, the front "
+             f"end, the tail and kernel 5 {T} times each")
     if bad:
         fail(f"lidar20_tuned's fixture worlds against the JAX run: {bad}")
 
@@ -5220,9 +5341,10 @@ def run_phases(dev, card, entry_proc, ptxas) -> int:
     fit_err, tail_err = phase_circle_fit(dev, scn, scan, sets)
     del scan, sets
     scans, zs_all, valid_all, tail_launches, filter_launches, \
-        front_launches = phase_config3(dev, scn)
+        front_launches, sim_launches = phase_config3(dev, scn)
     front_err = phase_fit_inputs(dev, scn, scans)
     ekf_err, ekf_row = phase_ekf_tick(dev, scn)
+    sim_err, sim_row = phase_sim_tick(dev, scn)
     fit_launches_b, cm_launches = phase_perception_buffered(
         dev, scn, scans, zs_all, valid_all)
     del scans, zs_all, valid_all
@@ -5293,6 +5415,14 @@ def run_phases(dev, card, entry_proc, ptxas) -> int:
                   f"for all {B3} worlds; held to ekf_batch.step for "
                   f"{EKF_TICKS} ticks and timed on the last tick's inputs "
                   f"(phase config3_ekf_tick)")
+    key = "sim_tick"
+    launches[key], errs[key] = sim_launches, sim_err
+    per_call[key] = bounds[key] = sim_row
+    lib[key] = None
+    paths[key] = (f"config 3's sim (path A, phase 13): one launch a tick "
+                  f"for all {B3} worlds; held to the plain chain bit for "
+                  f"bit for {SIM_TICKS} ticks and timed on the last tick's "
+                  f"inputs (phase config3_sim_tick)")
     key = "segment_fit_inputs"
     launches[key], errs[key] = front_launches, front_err
     paths[key] = (f"config 3's segmented perception (path A, phase 13): one "

@@ -41,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C entry points: name -> (source stem in csrc/, argtypes); restype is int.
 SIGNATURES = {
     "grid_update": ("grid_update", [_P] * 7 + [_I] * 5 + [_P]),
@@ -57,6 +58,7 @@ SIGNATURES = {
     "ekf_tick": ("ekf_tick", [_P] * 15 + [_I] * 6 + [_F] * 2 + [_P]),
     "segment_fit_inputs": ("perception",
                            [_P] * 3 + [_F] * 4 + [_P] * 8 + [_I] * 6 + [_P]),
+    "sim_tick": ("sim_tick", [_P] * 2 + [_I] * 8 + [_D] * 2 + [_P]),
 }
 
 

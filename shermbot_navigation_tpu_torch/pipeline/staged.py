@@ -43,6 +43,7 @@ import torch
 from ..device import resolve
 from ..models import ekf_slam as ekf
 from ..ops import diff_drive as dd
+from ..ops.kernels import sim_tick
 from ..ops.landmark_detection import detect_landmarks
 from ..sim import tube_world as tw
 from .config import ScenarioConfig
@@ -79,10 +80,9 @@ def _make_stages(scn: ScenarioConfig, params, Q, R):
 
     def produce(world, noise: tw.TickNoise, cmd):
         """Sim substeps + perception -> (new world, packet)."""
-        for k in range(scn.sim_substeps):
-            world = tw.step_dynamics(wcfg, params, world, cmd, scn.dt,
-                                     noise.substep(k))
-        obs = tw.observe(wcfg, params, world, noise.obs)
+        # the consumer does the odometry, one tick later
+        world, obs, _, _ = sim_tick.step(wcfg, params, world, cmd, scn.dt,
+                                         noise, scn.sim_substeps)
         if scn.use_lidar:
             det = detect_landmarks(
                 obs.scan, params.scan_min, params.scan_max,
