@@ -47,3 +47,27 @@ def circle_fit_tail_work(slots: int, live: int):
     each) and ok (1 byte) written; the tail's operations for each live
     cluster."""
     return slots * (14 * 4 + 1 + 3 * 4 + 1), live * TAIL_FLOPS
+
+
+def ekf_tick_work(worlds: int, D: int, N: int, M: int):
+    """Bytes and f32 operations of one filter tick (kernel 5) over
+    ``worlds`` worlds of state size ``D = 3 + 2N`` with ``M`` measurements:
+    the state read and written once (cov (D, D) and mean (D,) f32, n_seen
+    i32, seen (N,) bool a world), the tick's twist (3,) f32, zs (M, 2) f32
+    and valid (M,) bool read once (first-hit association: no ids); Q and R
+    (13 floats) once for all worlds.
+
+    The operations are those of the busiest tick, every measurement a
+    Kalman update: the predict's robot rows and columns (18 D), and for
+    each measurement the association over the N landmarks (H P H^T on the
+    five columns H touches, 280 each, the distance 20) and the update (P
+    H^T 20 D, the gain 8 D, the mean 4 D, the symmetric rank-2 downdate 2
+    D (D + 1)). At config 3's D = 43 even these take 0.18 ms at B = 65536
+    against the bytes' 0.30 ms, so the bytes set the least time of any of
+    its ticks. (At D = 13 they would pass the bytes: a cell there would
+    count its ticks' own updates.)"""
+    state = 4 * D * D + 4 * D + 4 + N
+    inputs = 4 * 3 + 4 * M * 2 + M
+    nbytes = worlds * (2 * state + inputs) + 4 * 13
+    per_meas = N * 300 + 32 * D + 2 * D * (D + 1)
+    return nbytes, worlds * (18 * D + M * per_meas)

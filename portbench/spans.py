@@ -3,11 +3,11 @@ the per-layer readers take them. A program that records none (one older
 than its recorder) gives no spans and no counters here, so its readers
 find nothing, and nothing raises.
 
-Of the readers, only ``kernel_load_s`` is in ``BENCHMARK.json`` (no
-``workloads`` list: every cell reports ``setup_s``). Each of the others
-would list its one cell, where ``run.per_layer`` fails a metric that reads
-nothing; laid over a program older than the recorder, that fails the
-traced run (``PERF.md``, Open questions)."""
+Of the readers, ``kernel_load_s`` and the batch tick's ``sim_ms.eval``,
+``perception_ms.eval`` and ``filter_ms.eval`` are in ``BENCHMARK.json``,
+each listing the cells it reads in; there ``run.per_layer`` fails a
+metric that reads nothing, so a program without the recorder fails the
+traced run."""
 
 from __future__ import annotations
 

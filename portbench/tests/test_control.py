@@ -19,7 +19,7 @@ CPU = torch.device("cpu")
 
 
 def lidar_run(seed=5, control_mm=None):
-    cfg, mix = tiny("lidar20.wide")
+    cfg, mix = tiny("lidar20.wide50")
     run = batch_lanes.Cell(cfg, mix, seed, CPU)
     run.window(0.0, NO_SPAN)
     return run.check(control_mm), run

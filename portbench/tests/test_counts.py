@@ -34,3 +34,17 @@ def test_circle_fit_tail_at_config_3():
     assert abs(counts.least_seconds(nbytes, flops) - flops / 67e12) < 1e-12
     half = counts.circle_fit_tail_work(C, C // 2)
     assert half == (nbytes, flops // 2)
+
+
+def test_ekf_tick_at_config_3():
+    B, N, M = 65536, 20, 16
+    D = 3 + 2 * N
+    nbytes, flops = counts.ekf_tick_work(B, D, N, M)
+    # state (cov, mean, n_seen, seen) read + written, twist, zs, valid read
+    assert nbytes == B * (2 * (4 * D * D + 4 * D + 4 + N) + 12 + 8 * M + M) \
+        + 52
+    assert abs(nbytes / 1.005e9 - 1) < 0.01            # 1.005 GB
+    # memory-bound: 0.300 ms at 3.35 TB/s, the busiest tick's operations
+    # under it
+    assert abs(counts.least_seconds(nbytes, flops) - 0.300e-3) < 1e-6
+    assert flops / counts.F32_FLOPS_PER_S < nbytes / counts.HBM_BYTES_PER_S

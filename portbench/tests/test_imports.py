@@ -17,7 +17,7 @@ from portbench import run as prun
 from portbench.drivers import batch_lanes, serving
 for m in prun.manifest()["per_layer"]:
     prun.reader(m["name"])
-_, cfg, mix = prun.cell_spec(prun.manifest(), "lidar20.wide")
+_, cfg, mix = prun.cell_spec(prun.manifest(), "lidar20.wide50")
 c = batch_lanes.Cell(cfg, dict(mix, batch=2, episode_ticks=2, warmup_ticks=1,
                                checked_worlds=1), 1, torch.device("cpu"))
 c.window(0.0, lambda n: contextlib.nullcontext())

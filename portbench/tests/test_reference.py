@@ -28,7 +28,7 @@ def tiny(cell: str):
 
 @pytest.mark.parametrize("seed", [3, 2**31 + 5])
 def test_batch_lanes_matches_the_reference(seed):
-    cfg, mix = tiny("lidar20.wide")
+    cfg, mix = tiny("lidar20.wide50")
     run = batch_lanes.Cell(cfg, mix, seed, CPU)
     run.window(0.0, NO_SPAN)
     assert run.attempted == 6 and run.failed == 0
@@ -53,7 +53,7 @@ def test_no_card_no_result():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     p = subprocess.run([sys.executable, str(prun.HERE / "run.py"),
-                        "--workload", "lidar20.wide", "--seed", "1",
+                        "--workload", "lidar20.wide50", "--seed", "1",
                         "--seconds", "1", "--trace", "0"],
                        capture_output=True, text=True, cwd=prun.ROOT)
     assert p.returncode != 0 and p.stdout == ""
@@ -74,7 +74,7 @@ def test_only_the_benchmark_is_no_run(tmp_path):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("cell", ["lidar20.wide", "serve50k.known"])
+@pytest.mark.parametrize("cell", ["lidar20.wide50", "serve50k.known"])
 def test_a_run_on_the_card(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

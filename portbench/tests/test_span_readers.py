@@ -1,8 +1,8 @@
 """The readers of the program's own spans and counters
 (``portbench/metrics/*``, through ``portbench/spans.py``): each on
-synthetic records, the one listed in the benchmark, a program that
-records nothing, and on the card the grid pass's span against the
-profiler's kernel time."""
+synthetic records, those listed in the benchmark in the cells they name, a
+program that records nothing, and on the card the grid pass's span against
+the profiler's kernel time."""
 
 from types import SimpleNamespace
 
@@ -15,12 +15,16 @@ from shermbot_navigation_tpu_torch.utils import tracing
 # each reader and the cells in which it finds something to read
 CELLS = {"host_to_grid_ms.serve": ["serve50k.known"],
          "grid_update_roofline.span": ["serve50k.known"],
-         "sim_ms.eval": ["lidar20.wide"],
-         "perception_ms.eval": ["lidar20.wide"],
-         "filter_ms.eval": ["lidar20.wide"],
-         "circle_fit_roofline.span": ["lidar20.wide"],
-         "kernel_load_s": ["lidar20.wide", "serve50k.known"]}
-LISTED = [(m, c) for m in sorted(CELLS) for c in CELLS[m]]
+         "sim_ms.eval": ["lidar20.wide50"],
+         "perception_ms.eval": ["lidar20.wide50"],
+         "filter_ms.eval": ["lidar20.wide50"],
+         "circle_fit_roofline.span": ["lidar20.wide50"],
+         "kernel_load_s": ["serve50k.known", "lidar20.wide50"]}
+# the readers that BENCHMARK.json lists, each on the cells it names; the
+# span twins of the rooflines and the serving tick's host time wait
+# (PERF.md, Open questions)
+LISTED_IN_BENCHMARK = ("sim_ms.eval", "perception_ms.eval", "filter_ms.eval",
+                       "kernel_load_s")
 
 
 def rec(name, id, parent=None, start_ms=0.0, end_ms=0.0, device_ms=None):
@@ -84,38 +88,44 @@ def test_each_reader_on_synthetic_records(metric, recorded):
     assert got == pytest.approx(expected(metric), rel=1e-12)
 
 
-def test_only_the_counter_is_listed_and_in_every_cell():
-    """Of these readers only ``kernel_load_s`` is a metric of the
-    benchmark, with no ``workloads`` list: it moves ``setup_s``, which
-    every cell reports. The others would list their cells, where
-    ``run.per_layer`` fails a metric that reads nothing, as a program
-    older than its recorder reads (PERF.md, Open questions)."""
-    got = [m for m in prun.manifest()["per_layer"] if m["name"] in CELLS]
-    assert [m["name"] for m in got] == ["kernel_load_s"]
-    assert "workloads" not in got[0]
+def test_the_listed_readers_name_their_cells():
+    """The readers of the program's spans and counters that are metrics of
+    the benchmark each carry a ``workloads`` list: the cells in which they
+    find something to read, where ``run.per_layer`` fails a metric that
+    reads nothing."""
+    got = {m["name"]: m for m in prun.manifest()["per_layer"]
+           if m["name"] in CELLS}
+    assert sorted(got) == sorted(LISTED_IN_BENCHMARK)
+    for name, m in got.items():
+        assert sorted(m["workloads"]) == sorted(CELLS[name])
+        assert m["source"] == ("program_counter" if name == "kernel_load_s"
+                               else "program_span")
 
 
 @pytest.mark.parametrize("cell", CELLS["kernel_load_s"])
-def test_a_program_without_the_recorder_still_gives_a_line(cell,
+def test_a_program_without_the_recorder_fails_a_traced_run(cell,
                                                            monkeypatch):
-    """The benchmark laid over a program older than its recorder: in every
-    cell the listed readers of the program's spans and counters find
-    nothing, and the traced run's line leaves them out instead of
-    failing."""
+    """The benchmark laid over a program without its recorder: in every
+    cell a listed reader of the program's spans and counters finds nothing,
+    and the traced run fails (exit 5) rather than leave the metric out."""
     monkeypatch.delattr(tracing, "spans")
     monkeypatch.delattr(tracing, "counters")
     bench = prun.manifest()
     mine = [m for m in bench["per_layer"] if m["name"] in CELLS]
-    assert prun.per_layer(dict(bench, per_layer=mine), cell, None, RUN) == {}
+    with pytest.raises(LookupError):
+        prun.per_layer(dict(bench, per_layer=mine), cell, None, RUN)
 
 
 @pytest.mark.parametrize("cell", CELLS["kernel_load_s"])
-def test_the_counter_is_reported_in_every_cell(cell, recorded):
-    recorded([], {"kernels.load_s": 0.75})
+def test_the_listed_readers_are_reported_in_their_cells(cell, recorded):
+    recorded(SERVING + BATCH, {"kernels.load_s": 0.75})
     bench = prun.manifest()
     mine = [m for m in bench["per_layer"] if m["name"] in CELLS]
-    assert prun.per_layer(dict(bench, per_layer=mine), cell, None, RUN) == {
-        "kernel_load_s": {"value": 0.75, "unit": "s"}}
+    got = prun.per_layer(dict(bench, per_layer=mine), cell, None, RUN)
+    want = {m: expected(m) for m in LISTED_IN_BENCHMARK
+            if cell in CELLS[m]}
+    assert {k: v["value"] for k, v in got.items()} == pytest.approx(want)
+    assert got["kernel_load_s"]["unit"] == "s"
 
 
 @pytest.mark.parametrize("metric", sorted(CELLS))
